@@ -9,19 +9,27 @@ In order, it:
    limit as nvidia-smi reports them;
 2. builds the CUDA kernels from `ppsurf_tpu_torch/csrc` with nvcc for
    sm_90a and prints the build seconds and ptxas' register report;
-3. runs every kernel of the reconstruction path (K1 kNN, K3 decoder tail,
-   K4/K5 PointNet) at the field chunk's production shapes, holds it
-   against its plain PyTorch version on the same inputs with the stated
-   tolerance, and times kernel, plain version and (for K1) a library
-   yardstick with CUDA events;
+3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
+   the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
+   PointNet) at the production shapes, and the seven T1 selection
+   microbenchmark variants at the TPU tool's shape; holds each against
+   its plain PyTorch version on the same inputs with the stated
+   tolerance, and times kernel, plain version and, where one PyTorch call
+   computes the same function, that call with CUDA events;
 4. reconstructs a seeded synthetic 60k-point surface cloud end to end with
    the committed weights in bf16 through `Predictor.reconstruct_shape`,
    with every kernel's launch count reset just before and read just after
    (with --profile, under torch.profiler: kernel time by name goes to FILE
-   and the device's busy share is printed);
-5. evaluates one query chunk of the field in f32 on the card and on the
+   and the device's busy share is printed); the refinement runs on the
+   candidate path, and its K2 and kc=192 K1 launches must match its
+   chunks and iterations;
+5. refines the first refinement chunk of that run again on the plain path
+   and on the candidate path: the vertices must be bit-identical except
+   where an iterate's 64-NN set holds an exact distance tie (at most 0.1%
+   of them); then times the refinement of every vertex on both paths;
+6. evaluates one query chunk of the field in f32 on the card and on the
    CPU plain path and compares the two;
-6. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
+7. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero before that last line. It needs one CUDA card
@@ -48,6 +56,13 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 # the field chunk's production shapes: cloud points and queries per chunk
 N_POINTS = 60031
 N_QUERIES = 50048
+# the candidate refinement's candidates per vertex and the T1 slab
+KC = 192
+T1_QUERIES, T1_NCAND, T1_K = 49152, 1536, 64
+
+# the kernels of the reconstruction path, each launched on the main path
+PATH_KERNELS = ("knn", "knn_k192", "decoder_tail", "pointnet_trunk", "pointnet_head",
+                "topk_rows")
 
 
 def fail(msg: str) -> typing.NoReturn:
@@ -125,15 +140,17 @@ def main() -> int:
     from ppsurf_tpu_torch.convert.infer_npz import load_infer_npz, load_network
     from ppsurf_tpu_torch.ops import kernels
     from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail, decoder_tail_plain
-    from ppsurf_tpu_torch.ops.knn import dist2, knn, knn_plain
+    from ppsurf_tpu_torch.ops.knn import dist2, dist2_rows, knn, knn_plain
     from ppsurf_tpu_torch.ops.morton import morton_order
     from ppsurf_tpu_torch.ops.patches import patch_space
     from ppsurf_tpu_torch.ops.pointnet_att import (
         pointnet_head, pointnet_head_plain, pointnet_tables, pointnet_trunk,
         pointnet_trunk_plain, stn_apply,
     )
+    from ppsurf_tpu_torch.ops.topk_rows import topk_rows, topk_rows_plain
     from ppsurf_tpu_torch.recon.field import FieldEvaluator
     from ppsurf_tpu_torch.recon.predict import DEFAULT_WEIGHTS, Predictor
+    from ppsurf_tpu_torch.tools.microbench_extract import VARIANTS, extract, extract_plain
     from ppsurf_tpu_torch.train.model import ppsurf_spec
 
     dev = torch.device("cuda")
@@ -153,7 +170,7 @@ def main() -> int:
         fail("the host library native/ppsurf_native.cpp did not build with g++")
     print("# host library native/ppsurf_native.cpp: built")
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("entry function", "registers", "spill")) or line.startswith("=="):
             print(f"#   {line.strip()}")
     sys.stdout.flush()
 
@@ -195,16 +212,22 @@ def main() -> int:
         check(f"{name} (scale {scale:.2f})", mean, tol[1] * scale, what="mean_abs_err")
         return err
 
+    def id_distance_err(ids, ids_p):
+        """max |distance of kernel id - distance of plain id| over q."""
+        err = 0.0
+        for s in range(0, c, 4096):
+            dd = dist2(q[s:s + 4096], pts)
+            err = max(err, float((dd.gather(1, ids[s:s + 4096])
+                                  - dd.gather(1, ids_p[s:s + 4096])).abs().max()))
+        return err
+
     with torch.inference_mode():
         # K1 at the field chunk (k=64) and at the encoder's k=16 / k=1
         ids = knn(pts, q, 64)
         ids_p = knn_plain(pts, q, 64)
         torch.cuda.synchronize()
         mism = int((ids != ids_p).any(dim=1).sum())
-        err = 0.0
-        for s in range(0, c, 4096):
-            dd = dist2(q[s:s + 4096], pts)
-            err = max(err, float((dd.gather(1, ids[s:s + 4096]) - dd.gather(1, ids_p[s:s + 4096])).abs().max()))
+        err = id_distance_err(ids, ids_p)
         print(f"# K1 knn k=64: {mism} of {c} queries with other ids than the plain version")
         check("K1 knn k=64 (distance of returned ids)", err, 0.0)
         sup = pts[torch.randperm(n, generator=gen, device=dev)[:10000]]
@@ -226,6 +249,93 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_knn, reps=2),
             shape=f"N={n} Q={c} k=64 f32",
         )
+
+        # K1 at the candidate refinement's kc=192 (the TopK<256> build), the
+        # queries taken as edge midpoints
+        ids_c = knn(pts, q, KC)
+        ids_cp = knn_plain(pts, q, KC)
+        torch.cuda.synchronize()
+        mism = int((ids_c != ids_cp).sum())
+        err = id_distance_err(ids_c, ids_cp)
+        check(f"K1 knn k={KC} on {c} queries (ids differing)", float(mism), 0.0)
+        check(f"K1 knn k={KC} (distance of returned ids)", err, 0.0)
+
+        def lib_knn_c():
+            for s in range(0, c, 4096):
+                torch.topk(torch.cdist(q[s:s + 4096], pts), KC, largest=False)
+
+        b_ms, b_by = bound_ms(n * 12 + c * 12 + c * KC * 8, c * n * 8.0, "f32")
+        results["knn_k192"] = dict(
+            name="knn_k192", route="cuda", source="ppsurf_tpu_torch/csrc/knn.cu",
+            replaces="ppsurf_tpu/ops/knn_pallas.py:48",
+            max_abs_err=err, ms=cuda_ms(lambda: knn(pts, q, KC), reps=3),
+            plain_ms=cuda_ms(lambda: knn_plain(pts, q, KC), reps=2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_knn_c, reps=2),
+            shape=f"N={n} Q={c} k={KC} f32",
+        )
+        del ids_cp
+
+        # K2 on the distances of an iterate near each midpoint to its kc
+        # candidates, with exact ties forced in every fifth row
+        cpts = pts[ids_c]
+        x = q + 0.004 * torch.randn(q.shape, generator=gen, device=dev)
+        d2c = dist2_rows(x, cpts)
+        d2c[::5, 1::7] = d2c[::5, 0::7][:, : d2c[:, 1::7].shape[1]]
+        pos = topk_rows(d2c, 64)
+        pos_p = topk_rows_plain(d2c, 64)
+        torch.cuda.synchronize()
+        mism = int((pos != pos_p).sum())
+        err = float((d2c.gather(1, pos) - d2c.gather(1, pos_p)).abs().max())
+        check(f"K2 topk_rows C={c} kc={KC} k=64 (positions differing)", float(mism), 0.0)
+        # the bound: bytes; a selection needs no more than kc*log2(k)
+        # compares a row
+        b_ms, b_by = bound_ms(c * KC * 4 + c * 64 * 8, c * KC * 6.0, "f32")
+        results["topk_rows"] = dict(
+            name="topk_rows", route="cuda", source="ppsurf_tpu_torch/csrc/select.cu",
+            replaces="ppsurf_tpu/ops/knn_pallas.py:269",
+            max_abs_err=err, ms=cuda_ms(lambda: topk_rows(d2c, 64), reps=10),
+            plain_ms=cuda_ms(lambda: topk_rows_plain(d2c, 64), reps=5),
+            bound_ms=b_ms, bound_by=b_by,
+            # a time only: torch.topk does not promise the tie order
+            library_ms=cuda_ms(lambda: torch.topk(d2c, 64, dim=1, largest=False), reps=5),
+            shape=f"C={c} kc={KC} k=64 f32",
+        )
+        del ids_c, cpts, x, d2c, pos, pos_p
+
+        # T1: the selection microbenchmark's variants at the TPU tool's
+        # shape, each exact against its plain version. Bound: the slab read
+        # once and the output written once; the least work of each variant's
+        # output (one pass, or ncand*log2(k) compares) is below it.
+        slab = torch.rand((T1_QUERIES, T1_NCAND), generator=gen, device=dev)
+        library = {
+            "sum_only": lambda: slab.sum(dim=1),
+            "min_only": lambda: slab.amin(dim=1),
+            "min_argmin": lambda: slab.argmin(dim=1),
+            "full": lambda: torch.topk(slab, T1_K, dim=1, largest=False),
+        }
+        for variant in VARIANTS:
+            out = extract(slab, variant, T1_K)
+            ref = extract_plain(slab, variant, T1_K)
+            torch.cuda.synchronize()
+            mism = int((out != ref).sum())
+            check(f"T1 extract {variant} {T1_QUERIES}x{T1_NCAND} k={T1_K} (elements differing)",
+                  float(mism), 0.0)
+            b_ms, b_by = bound_ms(T1_QUERIES * T1_NCAND * 4 + T1_QUERIES * T1_K * 4,
+                                  T1_QUERIES * T1_NCAND * 6.0, "f32")
+            lib = library.get(variant)
+            results[f"extract_{variant}"] = dict(
+                name=f"extract_{variant}", route="cuda",
+                source="ppsurf_tpu_torch/csrc/select.cu",
+                replaces="tools/microbench_extract.py:30",
+                max_abs_err=float((out - ref).abs().max()),
+                ms=cuda_ms(lambda: extract(slab, variant, T1_K)),
+                plain_ms=cuda_ms(lambda: extract_plain(slab, variant, T1_K), reps=2),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=None if lib is None else cuda_ms(lib, reps=3),
+                shape=f"Q={T1_QUERIES} ncand={T1_NCAND} k={T1_K} f32",
+            )
+            del out, ref
+        del slab
 
         # (max, mean) |kernel - plain| limits over scale. bf16: the sound
         # kernels read at most 8.5e-3 and 3.6e-7; kernels with one rounding
@@ -302,6 +412,17 @@ def main() -> int:
         from torch.profiler import ProfilerActivity, profile
 
         tracer = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # capture the refinement's inputs for phase 5 (the evaluator is made
+    # inside reconstruct_shape)
+    refine_in = {}
+    refine_bisection = FieldEvaluator.refine_bisection
+
+    def capture_refine(self, v, v1, v2, p1, p2, iters, force_full=False):
+        refine_in.update(v=v.copy(), v1=v1.copy(), v2=v2.copy(), p1=p1.copy(),
+                         p2=p2.copy(), iters=iters)
+        return refine_bisection(self, v, v1, v2, p1, p2, iters, force_full)
+
+    FieldEvaluator.refine_bisection = capture_refine
     kernels.reset_launches()
     with tracer as prof:
         t0 = time.perf_counter()
@@ -310,6 +431,7 @@ def main() -> int:
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    FieldEvaluator.refine_bisection = refine_bisection
     if args.profile:
         events = prof.key_averages()
         # device-side events only: CPU ops also carry their kernels' time
@@ -324,10 +446,11 @@ def main() -> int:
         fail("the reconstruction produced no mesh")
     if not np.isfinite(mesh.vertices).all():
         fail("non-finite vertices")
-    zero = [k for k, v in launches.items() if v == 0]
+    zero = [k for k in PATH_KERNELS if launches[k] == 0]
     if zero:
         fail(f"kernels not launched on the main path: {zero}")
-    queries = predictor.last_evaluator.stat_queries
+    ev = predictor.last_evaluator
+    queries = ev.stat_queries
     print(f"# e2e res {args.resolution}, {N_POINTS} pts, {args.passes} passes, "
           f"refine {args.refine}: {total:.2f} s; phases "
           + " ".join(f"{k}={v:.2f}s" for k, v in timings.items()))
@@ -335,8 +458,71 @@ def main() -> int:
           f"{mesh.faces.shape[0]} faces; launches {json.dumps(launches)}", flush=True)
     for name, res in results.items():
         res["launches"] = launches[name]
+    n_ref, iters = refine_in["v"].shape[0], refine_in["iters"]
+    chunks = -(-n_ref // ev.chunk)
+    print(f"# refine: {n_ref} vertices in {chunks} chunks x {iters} iterations on the "
+          f"candidate path: topk_rows {launches['topk_rows']}, knn k={KC} "
+          f"{launches['knn_k192']} launches; {ev.stat_cert_failed} vertices failed the "
+          "certificate and were refined on the plain path", flush=True)
+    if launches["topk_rows"] != chunks * iters or launches["knn_k192"] != chunks:
+        fail(f"the refinement did not run on the candidate path: {launches}")
 
-    # ---- 5. one chunk on the card vs the CPU plain path, f32 ----
+    # ---- 5. candidate path against plain path on the card ----
+    with torch.inference_mode():
+        names = ("v", "v1", "v2", "p1", "p2")
+        first = morton_order(refine_in["v"], *ev._bbox)[:ev.chunk]
+        args = [refine_in[k][first] for k in names]
+        runs = {}
+        for path in ("plain", "cand"):
+            kernels.reset_launches()
+            failed0 = ev.stat_cert_failed
+            runs[path] = ev.refine_bisection(*args, iters, force_full=path == "plain")
+            nonzero = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            print(f"# first refine chunk ({first.size} vertices) on the {path} path: launches "
+                  f"{json.dumps(nonzero)}; certificate failures "
+                  f"{ev.stat_cert_failed - failed0}", flush=True)
+        # the plain path's iterates, replayed bit for bit, explain a
+        # difference where one of them has an exact distance tie among its
+        # 65 nearest (K2 orders tied candidates by position, K1 by id)
+        order = morton_order(args[0], *ev._bbox)
+        iterates = []
+
+        def replay_ids(x):
+            iterates.append(x.clone())
+            return knn(ev.pts, x, ev.k)
+
+        replay = ev._bisect(*ev._sorted(*args, order=order), iters, replay_ids)
+        if not np.array_equal(replay.cpu().numpy(), runs["plain"][order]):
+            fail("the replay of the plain path differs from the plain path")
+        differ = np.flatnonzero((runs["plain"][order] != runs["cand"][order]).any(axis=1))
+        unexplained = []
+        for i in differ:
+            tied = False
+            for x in iterates:
+                ds = torch.sort(dist2(x[i:i + 1], ev.pts)[0])[0][:ev.k + 1]
+                tied |= bool((ds[1:] == ds[:-1]).any())
+            if not tied:
+                unexplained.append(int(i))
+        print(f"# candidate vs plain path: {differ.size} of {first.size} vertices differ "
+              f"(limit {first.size // 1000}), {len(unexplained)} of them without an exact "
+              f"distance tie among an iterate's {ev.k + 1} nearest", flush=True)
+        if differ.size > first.size // 1000 or unexplained:
+            fail(f"candidate and plain refinement disagree: {differ.size} vertices, "
+                 f"unexplained {unexplained[:10]}")
+
+        # the refinement of every vertex on both paths, in turns
+        all_args = [refine_in[k] for k in names]
+        secs = {"plain": [], "cand": []}
+        for path in ("plain", "cand", "cand", "plain"):
+            t0 = time.perf_counter()
+            ev.refine_bisection(*all_args, iters, force_full=path == "plain")
+            secs[path].append(time.perf_counter() - t0)
+        print(f"# refine phase over {n_ref} vertices, {iters} iterations: plain path "
+              + ", ".join(f"{t:.3f}" for t in secs["plain"]) + " s; candidate path "
+              + ", ".join(f"{t:.3f}" for t in secs["cand"]) + " s", flush=True)
+        del runs, iterates, replay
+
+    # ---- 6. one chunk on the card vs the CPU plain path, f32 ----
     with torch.inference_mode():
         spec32 = ppsurf_spec(dtype=torch.float32)
         lat32 = predictor.encoder(torch.from_numpy(cloud).to(dev),
@@ -355,7 +541,7 @@ def main() -> int:
 
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in
-                                  ("knn", "decoder_tail", "pointnet_trunk", "pointnet_head")]}))
+                                  PATH_KERNELS + tuple(f"extract_{v}" for v in VARIANTS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,16 +25,24 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-SOURCES = ("knn.cu", "decoder_tail.cu", "pointnet.cu")
+SOURCES = ("knn.cu", "decoder_tail.cu", "pointnet.cu", "select.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
 )
 
-# kernel name -> launches since the last reset_launches()
+# the microbenchmark variants of `ppsurf_tpu_torch/tools/microbench_extract.py`
+EXTRACT_VARIANTS = ("noop", "elementwise", "sum_only", "min_only", "min_argmin",
+                    "min_mask", "full")
+
+# kernel name -> launches since the last reset_launches(). K1 counts under
+# "knn" for k <= 128 and "knn_k192" for 128 < k <= 256, the build the
+# candidate refinement runs at kc=192.
 LAUNCHES: typing.Dict[str, int] = {
-    "knn": 0, "decoder_tail": 0, "pointnet_trunk": 0, "pointnet_head": 0,
+    "knn": 0, "knn_k192": 0, "decoder_tail": 0, "pointnet_trunk": 0,
+    "pointnet_head": 0, "topk_rows": 0,
+    **{f"extract_{v}": 0 for v in EXTRACT_VARIANTS},
 }
 
 _P = ctypes.c_void_p
@@ -50,6 +58,10 @@ _SIGNATURES = {
     "ppsurf_pointnet_trunk": [_P] * 9 + [_I] * 3 + [_P],
     # x2, wc1, wc2, wc3, wq, wv, aff, bqv, out, c, p, is_bf16, stream
     "ppsurf_pointnet_head": [_P] * 9 + [_I] * 3 + [_P],
+    # d2, out positions, c, kc, k, stream
+    "ppsurf_topk_rows": [_P, _P, _I, _I, _I, _P],
+    # cand, out, q, ncand, k, variant (index in EXTRACT_VARIANTS), stream
+    "ppsurf_extract": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 

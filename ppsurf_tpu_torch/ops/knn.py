@@ -49,6 +49,14 @@ def dist2(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return dx * dx + dy * dy + dz * dz
 
 
+def dist2_rows(queries: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """(C, kc) squared distances of each query (C, 3) to its own row of
+    candidate points (C, kc, 3), in `dist2`'s arithmetic: the same bits
+    as the kernel's distance of that query and point."""
+    d = cand - queries[:, None, :]
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
 def knn_plain(points: torch.Tensor, queries: torch.Tensor, k: int,
               valid: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of K1: full distances and a stable sort."""
@@ -71,7 +79,8 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int,
     """Ids (Q, k) int64 of the k nearest `points` (N, 3) to each of
     `queries` (Q, 3), nearest first; `valid` (N,) bool masks points out.
 
-    CPU tensors take the plain version; CUDA tensors launch K1.
+    CPU tensors take the plain version; CUDA tensors launch K1, counted
+    as "knn" for k <= 128 and "knn_k192" above.
     """
     n = points.shape[0]
     if not 1 <= k <= min(n, KMAX):
@@ -89,7 +98,8 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int,
     out = torch.empty((queries.shape[0], k), dtype=torch.int64, device=points.device)
     if queries.shape[0]:
         kernels.launch(
-            "knn", "ppsurf_knn", kernels.ptr(points), kernels.ptr(valid),
-            kernels.ptr(queries), kernels.ptr(out), n, queries.shape[0], k,
+            "knn" if k <= 128 else "knn_k192", "ppsurf_knn", kernels.ptr(points),
+            kernels.ptr(valid), kernels.ptr(queries), kernels.ptr(out), n,
+            queries.shape[0], k,
         )
     return out

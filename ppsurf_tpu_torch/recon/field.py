@@ -14,7 +14,12 @@ and `source/poco_utils.py:67-82`):
   the 64 nearest-first ids, PointNet (K4, STN head, K5), the MLP and the
   softmax difference.
 - `FieldEvaluator.refine_bisection`: all bisection rounds of a vertex
-  chunk back to back on the device, each round a full field evaluation.
+  chunk back to back on the device. By default on the candidate path
+  (`_make_refine_cand_chunk`, `field.py:292-369`): one kc=192 kNN at the
+  edge midpoints (K1) per chunk, then per round each iterate's exact 64
+  nearest picked from those candidates (K2) in place of a full kNN; the
+  vertices whose certificate fails are refined again on the plain path,
+  where every round is a full field evaluation with its own kNN.
 
 The cloud is Morton-sorted once per shape and every query batch per call,
 so K1's seed window finds the true neighbours; results are scattered back
@@ -30,13 +35,19 @@ import torch
 
 from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail
 from ppsurf_tpu_torch.ops.graph import Draws, build_fkaconv_graph, draw_graph
-from ppsurf_tpu_torch.ops.knn import knn
+from ppsurf_tpu_torch.ops.knn import dist2_rows, knn
 from ppsurf_tpu_torch.ops.morton import morton_order
 from ppsurf_tpu_torch.ops.patches import patch_space
 from ppsurf_tpu_torch.ops.pointnet_att import pointnet_att, pointnet_tables
+from ppsurf_tpu_torch.ops.topk_rows import topk_rows
 from ppsurf_tpu_torch.train.model import ModelSpec
 
 Transform = typing.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+# candidates per vertex of the candidate refinement (`field.py:283-289`):
+# the kc nearest cloud points of the edge midpoint certify the exact k-NN
+# of every iterate on the edge when tau_k(m) + r < tau_kc(m) - r
+REFINE_CAND_K = 192
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -124,6 +135,7 @@ class FieldEvaluator:
         self.chunk = _ceil_to(spec.rec_batch_size, 128)
         self.k = min(spec.k, pts.shape[0])
         self.stat_queries = 0
+        self.stat_cert_failed = 0  # vertices the candidate path handed back
 
         self._bbox = (pts.min(axis=0), pts.max(axis=0))
         order = morton_order(pts, *self._bbox)
@@ -140,9 +152,13 @@ class FieldEvaluator:
         self.decoder = decoder_tables(net.projection, self.dtype)
         self.point_net = pointnet_tables(net.point_net)
 
-    def eval_chunk(self, q: torch.Tensor) -> torch.Tensor:
-        """q (C, 3) f32 on the device -> field values (C,) f32."""
-        ids = knn(self.pts, q, self.k)
+    def eval_chunk(self, q: torch.Tensor,
+                   ids: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """q (C, 3) f32 on the device -> field values (C,) f32. `ids` (C, k)
+        are q's k nearest cloud ids, nearest first, where the caller has
+        them (the candidate refinement); else K1 finds them."""
+        if ids is None:
+            ids = knn(self.pts, q, self.k)
         pooled = decoder_tail(self.latents, self.pts, q, ids, self.decoder)
         feat_proj = self.net.projection.fc8(pooled)
         patches = patch_space(self.pts[ids[:, : self.spec.num_pts_local]], q)
@@ -176,33 +192,90 @@ class FieldEvaluator:
         return out
 
     def refine_bisection(self, v: np.ndarray, v1: np.ndarray, v2: np.ndarray,
-                         p1: np.ndarray, p2: np.ndarray, iters: int) -> np.ndarray:
+                         p1: np.ndarray, p2: np.ndarray, iters: int,
+                         force_full: bool = False) -> np.ndarray:
         """Bisection refinement (reference `poco_utils.py:111-168`) of
-        vertices v between grid points v1/v2 with field values p1/p2:
-        all `iters` rounds of a chunk run on the device, each round a full
-        field evaluation (kNN included) — the JAX package's plain path
-        (`_make_refine_chunk`, `field.py:227-263`)."""
+        vertices v between grid points v1/v2 with field values p1/p2; all
+        `iters` rounds of a chunk run on the device (`_refine_impl`,
+        `field.py:854-1005`). The candidate path is taken unless
+        `force_full` or the cloud has no more than REFINE_CAND_K + k
+        points; `force_full` runs the plain path (`_make_refine_chunk`,
+        `field.py:227-263`) for every vertex."""
         m = v.shape[0]
         if m == 0 or iters == 0:
             return np.asarray(v, np.float32)
         self.stat_queries += m * iters
         order = morton_order(v, *self._bbox)
-        vs, v1s, v2s = self._sorted(v, v1, v2, order=order)
-        p1s, p2s = self._sorted(p1, p2, order=order)
-        out = []
-        for s in range(0, m, self.chunk):
-            cv, c1, c2 = vs[s:s + self.chunk], v1s[s:s + self.chunk], v2s[s:s + self.chunk]
-            q1, q2 = p1s[s:s + self.chunk], p2s[s:s + self.chunk]
-            for _ in range(iters):
-                preds = self.eval_chunk(cv)
-                m1 = (preds * q1) > 0
-                c1 = torch.where(m1[:, None], cv, c1)
-                q1 = torch.where(m1, preds, q1)
-                m2 = (preds * q2) > 0
-                c2 = torch.where(m2[:, None], cv, c2)
-                q2 = torch.where(m2, preds, q2)
-                cv = 0.5 * (c1 + c2)
-            out.append(cv)
+        sorted_in = self._sorted(v, v1, v2, p1, p2, order=order)
+        if force_full or self.pts.shape[0] <= REFINE_CAND_K + self.k:
+            refined = self._refine_plain(*sorted_in, iters)
+        else:
+            refined = self._refine_cand(*sorted_in, iters)
         res = np.empty((m, 3), np.float32)
-        res[order] = torch.cat(out).cpu().numpy()
+        res[order] = refined.cpu().numpy()
         return res
+
+    def _bisect(self, v: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
+                p1: torch.Tensor, p2: torch.Tensor, iters: int,
+                ids_at: typing.Optional[typing.Callable[[torch.Tensor], torch.Tensor]] = None,
+                ) -> torch.Tensor:
+        """`iters` bisection rounds of one chunk; `ids_at(v)` gives the
+        iterate's k nearest ids where the caller knows a cheaper way."""
+        for _ in range(iters):
+            preds = self.eval_chunk(v, None if ids_at is None else ids_at(v))
+            m1 = (preds * p1) > 0
+            v1 = torch.where(m1[:, None], v, v1)
+            p1 = torch.where(m1, preds, p1)
+            m2 = (preds * p2) > 0
+            v2 = torch.where(m2[:, None], v, v2)
+            p2 = torch.where(m2, preds, p2)
+            v = 0.5 * (v1 + v2)
+        return v
+
+    def _refine_plain(self, v, v1, v2, p1, p2, iters: int) -> torch.Tensor:
+        """Plain path on Morton-sorted device tensors: each round's field
+        evaluation finds its own kNN."""
+        c = self.chunk
+        return torch.cat([self._bisect(v[s:s + c], v1[s:s + c], v2[s:s + c],
+                                       p1[s:s + c], p2[s:s + c], iters)
+                          for s in range(0, v.shape[0], c)])
+
+    def _refine_cand(self, v, v1, v2, p1, p2, iters: int) -> torch.Tensor:
+        """Candidate path on Morton-sorted device tensors
+        (`_make_refine_cand_chunk`, `field.py:292-369`).
+
+        Every iterate x lies on its edge [v1, v2], so |x - mid| <= r (half
+        the edge). A point outside the kc nearest of mid is then at least
+        tau_kc(mid) - r from x and the k-th candidate at most
+        tau_k(mid) + r, so where tau_k + r < tau_kc - r the candidates
+        hold x's exact k nearest (the 1e-6 margin absorbs f32 rounding).
+        Each round computes x's distances to its candidates in K1's
+        arithmetic and picks the k nearest with K2, so the ids are K1's
+        at x up to the order of exactly tied distances. Vertices whose
+        certificate fails are refined again on the plain path."""
+        kc, k, c = REFINE_CAND_K, self.k, self.chunk
+        out, cert = [], []
+        for s in range(0, v.shape[0], c):
+            e1, e2 = v1[s:s + c], v2[s:s + c]
+            mid = 0.5 * (e1 + e2)
+            r = 0.5 * torch.sqrt(((e1 - e2) ** 2).sum(dim=-1))
+            ids_c = knn(self.pts, mid, kc)  # (C, kc), nearest first
+            cpts = self.pts[ids_c]  # (C, kc, 3)
+            d2m = dist2_rows(mid, cpts)
+            tau_k = torch.sqrt(d2m[:, k - 1])
+            tau_c = torch.sqrt(d2m[:, kc - 1])
+            cert.append((tau_k + r) < (tau_c - r) * (1.0 - 1e-6))
+
+            def ids_at(x, ids_c=ids_c, cpts=cpts):
+                return ids_c.gather(1, topk_rows(dist2_rows(x, cpts), k))
+
+            out.append(self._bisect(v[s:s + c], e1, e2, p1[s:s + c], p2[s:s + c],
+                                    iters, ids_at))
+            del ids_c, cpts, d2m, ids_at  # 190 MB a chunk of 50 048
+        refined = torch.cat(out)
+        bad = torch.nonzero(~torch.cat(cert)).flatten()
+        self.stat_cert_failed += int(bad.numel())
+        if bad.numel():
+            refined[bad] = self._refine_plain(v[bad], v1[bad], v2[bad], p1[bad],
+                                              p2[bad], iters)
+        return refined

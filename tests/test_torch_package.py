@@ -108,15 +108,21 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     stay 0 and the build is never asked for."""
     from ppsurf_tpu_torch.ops import kernels
     from ppsurf_tpu_torch.ops.knn import knn
+    from ppsurf_tpu_torch.ops.topk_rows import topk_rows
+    from ppsurf_tpu_torch.tools.microbench_extract import VARIANTS, extract
 
     def no_build():
         raise AssertionError("kernel build requested for a CPU tensor")
 
     monkeypatch.setattr(kernels, "build", no_build)
     kernels.reset_launches()
-    pts = torch.rand(100, 3)
+    pts = torch.rand(300, 3)
     ids = knn(pts, pts[:10], 8)
     assert ids.shape == (10, 8) and (ids[:, 0] == torch.arange(10)).all()
+    assert (knn(pts, pts[:10], 192)[:, 0] == torch.arange(10)).all()
+    assert (topk_rows(torch.rand(10, 192), 64) < 192).all()
+    for variant in VARIANTS:
+        assert extract(torch.rand(10, 64), variant, 8).shape == (10, 8)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 
@@ -133,6 +139,8 @@ def test_kernels_match_plain_versions_on_the_card():
         pointnet_head, pointnet_head_plain, pointnet_tables, pointnet_trunk,
         pointnet_trunk_plain,
     )
+    from ppsurf_tpu_torch.ops.topk_rows import topk_rows, topk_rows_plain
+    from ppsurf_tpu_torch.tools.microbench_extract import VARIANTS, extract, extract_plain
     from ppsurf_tpu_torch.train.model import ppsurf_spec
 
     dev = torch.device("cuda")
@@ -142,6 +150,14 @@ def test_kernels_match_plain_versions_on_the_card():
     kernels.reset_launches()
     ids = knn(pts, q, 64)
     assert torch.equal(ids, knn_plain(pts, q, 64))
+    assert torch.equal(knn(pts, q, 192), knn_plain(pts, q, 192))
+    d2 = torch.rand(700, 192, generator=g, device=dev)
+    d2[:, 1::7] = d2[:, 0::7][:, :28]
+    d2[0, :8] = torch.tensor([float("inf"), 1e30, float("nan"), -0.0, 0.0, -1e38, 3e12, 1e30])
+    assert torch.equal(topk_rows(d2, 64), topk_rows_plain(d2, 64))
+    cand = torch.rand(700, 300, generator=g, device=dev)
+    for variant in VARIANTS:
+        assert torch.equal(extract(cand, variant, 16), extract_plain(cand, variant, 16)), variant
     net = load_network(ppsurf_spec(), load_infer_npz(WEIGHTS), dev)
     lat = torch.randn(3000, 256, generator=g, device=dev)
     tabs = decoder_tables(net.projection, torch.float32)

@@ -2,9 +2,9 @@
 
 One module fixture reconstructs a 1500-point ellipsoid (a bumpy sphere
 flattened to 0.3 in z) with the committed weights in both packages (2
-encoder passes, res 17, refine 3, the JAX package on its plain refinement
-path `refine_bisection(force_full=True)` via PPSURF_REFINE_CAND=0), the
-port with the JAX draws injected. The tests then hold, in f32:
+encoder passes, res 17, refine 3, both refining on their default
+candidate path), the port with the JAX draws injected. The tests then
+hold, in f32:
 
 - one FKAConv graph's latents (`get_latent`) and the accumulated latents
   of `LatentEncoder` to 1e-4: the encoder is ~40 layers deep and XLA and
@@ -13,16 +13,19 @@ port with the JAX draws injected. The tests then hold, in f32:
   difference of softmax probabilities, same reason), apart from queries
   whose 64- or 50-NN set holds a near-tie (the JAX CPU kNN ranks by
   matmul distances);
-- `refine_bisection` against the JAX plain refinement to 1e-4, on half
-  of the vertices that refinement took in the JAX reconstruction
-  (bisection steps are halvings of one grid edge, so any flipped branch
-  would show as a step of at least edge/2^iters);
+- `refine_bisection` on half of the vertices that refinement took in the
+  JAX reconstruction, with the inputs the JAX run captured: the plain
+  path (`force_full=True`) against the JAX plain path and the candidate
+  path against the JAX candidate path, to 1e-4 (bisection steps are
+  halvings of one grid edge, so any flipped branch would show as a step
+  of at least edge/2^iters); and the port's candidate path against its
+  own plain path exactly, also with REFINE_CAND_K cut to k+1, where
+  nearly every certificate fails and the plain path re-refines;
 - `Predictor.reconstruct_shape`: the evaluated-voxel set, the volume's
   signs, the faces and the refined vertices (1e-4). A refined vertex may
   differ where one bisection step took the other branch; each such vertex
   is replayed and must trace back to a near-tie of its query's 50/64-NN
-  set or a field within 1e-4 of zero. At this size none of the 816
-  refined vertices differs.
+  set or a field within 1e-4 of zero.
 """
 from __future__ import annotations
 
@@ -36,12 +39,13 @@ import torch
 
 from ppsurf_tpu.convert.infer_npz import load_infer_npz as jax_load_infer_npz
 from ppsurf_tpu.recon import engine as jax_engine
+from ppsurf_tpu.recon import field as jax_field
 from ppsurf_tpu.recon.field import FieldEvaluator as JFieldEvaluator
 from ppsurf_tpu.recon.field import LatentEncoder as JLatentEncoder
 from ppsurf_tpu.recon.predict import Predictor as JPredictor
 from ppsurf_tpu.train.model import ppsurf_spec as jax_spec
 from ppsurf_tpu_torch.ops.graph import build_fkaconv_graph, draw_graph
-from ppsurf_tpu_torch.recon import engine
+from ppsurf_tpu_torch.recon import engine, field
 from ppsurf_tpu_torch.recon.field import EncoderDraws, FieldEvaluator
 from ppsurf_tpu_torch.recon.predict import DEFAULT_WEIGHTS, Predictor
 from ppsurf_tpu_torch.train.model import ppsurf_spec
@@ -107,8 +111,9 @@ def runs():
             return out
         return wrapped
 
+    jax_field._reset_cand_broken()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("PPSURF_REFINE_CAND", "0")
+        mp.delenv("PPSURF_REFINE_CAND", raising=False)
         for module, tag in ((jax_engine, "jax"), (engine, "torch")):
             mp.setattr(module, "create_volume_region_growing",
                        capture_volume(module.create_volume_region_growing, tag))
@@ -128,6 +133,8 @@ def runs():
             mesh_j = jp.reconstruct_shape(pts, seed=SEED, resolution=RES)
             lat_j = np.asarray(jp.encoder(variables, pts, jax.random.key(SEED)))
             mesh_t, lat_t = port.result()
+    # the JAX run stayed on its candidate path (no downgrade to the plain one)
+    assert not jax_field._CAND_BROKEN
     return dict(pts=pts, variables=variables, jp=jp, tp=tp, mesh_j=mesh_j,
                 mesh_t=mesh_t, lat_j=lat_j, lat_t=lat_t, volumes=volumes,
                 refines=refines)
@@ -177,21 +184,67 @@ def test_field_matches_jax_on_a_grid(runs):
     np.testing.assert_allclose(ours[ok], theirs[ok], rtol=0, atol=1e-4)
 
 
-def test_refine_bisection_matches_jax_plain_path(runs):
+def _refine_inputs(runs):
     """Every second vertex of the JAX reconstruction's refinement, with its
-    inputs and result as the JAX plain path took and returned them, refined
-    again by the port on the JAX latents."""
-    _, te = _evaluators(runs)
+    inputs as the JAX run captured them."""
     rj = runs["refines"]["jax"]
     rows = np.arange(0, rj["v"].shape[0], 2)
     v, v1, v2 = (rj[n][rows].astype(np.float32) for n in ("v", "v1", "v2"))
-    p1, p2 = rj["p1"][rows], rj["p2"][rows]
+    return rows, (v, v1, v2, rj["p1"][rows], rj["p2"][rows], rj["iters"])
+
+
+@pytest.fixture(scope="module")
+def port_refines(runs):
+    """The port's refinement of those vertices on the JAX latents: plain
+    path, candidate path, and candidate path with REFINE_CAND_K = k+1."""
+    _, te = _evaluators(runs)
+    _, args = _refine_inputs(runs)
+    out = {}
     with torch.inference_mode():
-        ours = te.refine_bisection(v, v1, v2, p1, p2, rj["iters"])
+        out["plain"] = te.refine_bisection(*args, force_full=True)
+        out["cand"] = te.refine_bisection(*args)
+        out["cand_failed"] = te.stat_cert_failed
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(field, "REFINE_CAND_K", te.k + 1)
+            out["narrow"] = te.refine_bisection(*args)
+        out["narrow_failed"] = te.stat_cert_failed - out["cand_failed"]
+    return out
+
+
+def _far_from_ties(runs, v, v1, v2):
     ok = ~_exact_tie(runs["pts"], np.concatenate([v1, v2, v]))
-    ok = ok.reshape(3, -1).all(axis=0)
+    return ok.reshape(3, -1).all(axis=0)
+
+
+def test_refine_bisection_matches_jax_plain_path(runs, port_refines):
+    je, _ = _evaluators(runs)
+    rows, args = _refine_inputs(runs)
+    theirs = je.refine_bisection(*args, force_full=True)
+    ok = _far_from_ties(runs, *args[:3])
     assert rows.size > 300 and ok.mean() > 0.95
-    np.testing.assert_allclose(ours[ok], rj["out"][rows][ok], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(port_refines["plain"][ok], theirs[ok], rtol=0, atol=1e-4)
+
+
+def test_refine_bisection_matches_jax_candidate_path(runs, port_refines):
+    """The JAX reconstruction's own candidate-path results for those
+    vertices."""
+    rows, args = _refine_inputs(runs)
+    ok = _far_from_ties(runs, *args[:3])
+    assert rows.size > 300 and ok.mean() > 0.95
+    theirs = runs["refines"]["jax"]["out"][rows]
+    np.testing.assert_allclose(port_refines["cand"][ok], theirs[ok], rtol=0, atol=1e-4)
+
+
+def test_candidate_refinement_equals_the_plain_path(runs, port_refines):
+    """Exact on the CPU: the candidates hold each iterate's 64 nearest and
+    K2's plain version orders them as K1's does, so every field evaluation
+    sees the same ids. With kc = k+1 almost every certificate fails and
+    the plain path's result comes back for those vertices."""
+    n = port_refines["plain"].shape[0]
+    assert port_refines["cand_failed"] < n // 2
+    assert port_refines["narrow_failed"] > 0.9 * n
+    np.testing.assert_array_equal(port_refines["cand"], port_refines["plain"])
+    np.testing.assert_array_equal(port_refines["narrow"], port_refines["plain"])
 
 
 def test_reconstruct_shape_matches_jax_predictor(runs):

@@ -23,7 +23,7 @@ SMOKE_ARGS = ["--resolution", "33", "--passes", "1", "--refine", "1"]
 
 # name -> (source, text, the text with one rounding step removed)
 MUTANTS = {
-    "dense output not rounded before its bias (K3 fc2/fc3, K4, K5)": (
+    "dense output not rounded before its bias (K4, K5)": (
         "ppsurf_tpu_torch/csrc/common.cuh",
         "float y = rnd<T>(rnd<T>(acc[i][j]) + b);",
         "float y = rnd<T>(acc[i][j] + b);"),
@@ -31,6 +31,10 @@ MUTANTS = {
         "ppsurf_tpu_torch/csrc/common.cuh",
         "float y = rnd<T>(rnd<T>(acc[i][j]) + b);",
         "float y = rnd<T>(acc[i][j]) + b;"),
+    "K3 wgmma epilogue: product not rounded before its bias (fc2, fc3, fc_query, fc_value)": (
+        "ppsurf_tpu_torch/csrc/decoder_tail.cu",
+        "return rnd<bf16>(rnd<bf16>(acc) + b);",
+        "return rnd<bf16>(acc + b);"),
     "K3 head-mean attention not rounded": (
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
         "att[tid] = rnd<T>(a / HEADS);",

@@ -8,14 +8,24 @@ In order, it:
 1. prints the toolchain (torch/CUDA, nvcc) and the card's name and power
    limit as nvidia-smi reports them;
 2. builds the CUDA kernels from `ppsurf_tpu_torch/csrc` with nvcc for
-   sm_90a and prints the build seconds and ptxas' register report;
+   sm_90a, prints the build seconds and ptxas' register report, and fails
+   unless every K1 instantiation has a 0-byte stack frame and the bf16
+   decoder-tail kernel's SASS holds HGMMA (tensor-core) instructions;
 3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
    the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
    PointNet) at the production shapes, and the seven T1 selection
    microbenchmark variants at the TPU tool's shape; holds each against
    its plain PyTorch version on the same inputs with the stated
    tolerance, and times kernel, plain version and, where one PyTorch call
-   computes the same function, that call with CUDA events;
+   computes the same function, that call with CUDA events; K1 also runs
+   k in {1, 16, 64, 192, 256} on a shuffled cloud, exact duplicates, a
+   cluster with outliers and far queries, and a mask with fewer valid
+   points than k, each exact; K1 is timed with the cloud's blocking made
+   once, as the field evaluator calls it, and the blocking's time is
+   printed beside it; K1's bound counts the distances in the blocks its
+   boxes cannot cull; K3's line is followed by the time of its four
+   products alone as bf16 torch.matmul (a yardstick) and by a control:
+   the plain version with those products on the tensor cores;
 4. reconstructs a seeded synthetic 60k-point surface cloud end to end with
    the committed weights in bf16 through `Predictor.reconstruct_shape`,
    with every kernel's launch count reset just before and read just after
@@ -23,10 +33,13 @@ In order, it:
    and the device's busy share is printed); the refinement runs on the
    candidate path, and its K2 and kc=192 K1 launches must match its
    chunks and iterations;
-5. refines the first refinement chunk of that run again on the plain path
-   and on the candidate path: the vertices must be bit-identical except
-   where an iterate's 64-NN set holds an exact distance tie (at most 0.1%
-   of them); then times the refinement of every vertex on both paths;
+5. evaluates the bf16 field near the mesh with K3 and with its plain
+   version and prints where their signs differ (the mesh moves only
+   there); refines the first refinement chunk of that run again on the
+   plain path and on the candidate path: the vertices must be
+   bit-identical except where an iterate's 64-NN set holds an exact
+   distance tie (at most 0.1% of them); then times the refinement of
+   every vertex on both paths;
 6. evaluates one query chunk of the field in f32 on the card and on the
    CPU plain path and compares the two;
 7. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
@@ -109,6 +122,77 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def stack_frames(log: str) -> typing.Dict[str, int]:
+    """Kernel (demangled template name, e.g. knn_kernel<64>) -> stack-frame
+    bytes, from ptxas' -v report."""
+    import re
+
+    frames, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            # _ZN..._knn_cu_afef58a010knn_kernelILi64EEv... -> knn_kernel<64>
+            t = re.search(r"([a-z_]+kernel)ILi(\d+)E", m.group(1))
+            name = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name is not None:
+            frames[name] = int(m.group(1))
+            name = None
+    return frames
+
+
+def knn_needed_ops(pts, q, ids_plain) -> float:
+    """The distance operations these inputs need of K1: 8 for every point
+    of every Morton block whose box lower bound is not above the query's
+    true k-th distance (from the plain version's ids)."""
+    import torch
+
+    from ppsurf_tpu_torch.ops.knn import KNN_BLOCK, box_lower_bound, dist2_rows, knn_blocks
+
+    _, boxes = knn_blocks(pts)
+    blocks = 0
+    for s in range(0, q.shape[0], 4096):
+        qs, last = q[s:s + 4096], ids_plain[s:s + 4096, -1]
+        tau = torch.where(last >= 0, dist2_rows(qs, pts[last.clamp(min=0)][:, None])[:, 0],
+                          float("inf"))
+        blocks += int((box_lower_bound(qs, boxes) <= tau[:, None]).sum())
+    return blocks * KNN_BLOCK * 8.0
+
+
+def knn_edge_cases(check, gen, dev, pts, q) -> None:
+    """K1 against its plain version, 0 ids differing, for k in {1, 16, 64,
+    192, 256} on: the production cloud in random order; hundreds of exact
+    duplicates (ties, buffer overflow); one dense cluster with sparse
+    outliers and queries far outside; a mask with fewer valid points
+    than k (the trailing ids are -1)."""
+    import torch
+
+    from ppsurf_tpu_torch.ops.knn import knn, knn_plain
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    qs = q[torch.randperm(q.shape[0], generator=gen, device=dev)[:4096]]
+    shuffled = pts[torch.randperm(pts.shape[0], generator=gen, device=dev)]
+    dup = torch.cat([rand(40, 3).repeat_interleave(300, dim=0), rand(8000, 3)])
+    dup = dup[torch.randperm(dup.shape[0], generator=gen, device=dev)]
+    cluster = torch.cat([0.5 + 1e-3 * torch.randn(20000, 3, generator=gen, device=dev),
+                         10.0 * torch.randn(300, 3, generator=gen, device=dev)])
+    far = torch.cat([cluster[:2048], 1e3 + rand(64, 3), -1e3 * rand(64, 3)])
+    masked = rand(5000, 3)
+    valid = torch.zeros(5000, dtype=torch.bool, device=dev)
+    valid[torch.randperm(5000, generator=gen, device=dev)[:100]] = True
+    cases = (("production cloud in random order", shuffled, qs, None),
+             ("12000 exact duplicates of 40 points + 8000", dup, dup[:2048], None),
+             ("dense cluster + outliers, far queries", cluster, far, None),
+             ("100 valid of 5000 points", masked, rand(1024, 3), valid))
+    for name, p, qq, v in cases:
+        for k in (1, 16, 64, 192, 256):
+            e = int((knn(p, qq, k, v) != knn_plain(p, qq, k, v)).sum())
+            check(f"K1 knn k={k}, {name} (ids differing)", float(e), 0.0)
+
+
 def bound_ms(n_bytes: float, ops: float, kind: str):
     tb = n_bytes / PEAK_BYTES * 1e3
     to = ops / PEAK_OPS[kind] * 1e3
@@ -140,7 +224,7 @@ def main() -> int:
     from ppsurf_tpu_torch.convert.infer_npz import load_infer_npz, load_network
     from ppsurf_tpu_torch.ops import kernels
     from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail, decoder_tail_plain
-    from ppsurf_tpu_torch.ops.knn import dist2, dist2_rows, knn, knn_plain
+    from ppsurf_tpu_torch.ops.knn import dist2, dist2_rows, knn, knn_blocks, knn_plain
     from ppsurf_tpu_torch.ops.morton import morton_order
     from ppsurf_tpu_torch.ops.patches import patch_space
     from ppsurf_tpu_torch.ops.pointnet_att import (
@@ -172,6 +256,19 @@ def main() -> int:
     for line in lib.log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")) or line.startswith("=="):
             print(f"#   {line.strip()}")
+    frames = stack_frames(lib.log)
+    knn_frames = {name: b for name, b in frames.items() if "knn_kernel" in name}
+    for name, b in sorted(knn_frames.items()):
+        print(f"# K1 {name}: {b} bytes stack frame")
+    if len(knn_frames) != 4 or any(knn_frames.values()):
+        fail(f"every K1 instantiation must have a 0-byte stack frame: {knn_frames}")
+    sass = run([os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump"), "-sass",
+                lib.path])
+    hgmma = sum(part.count("HGMMA") for part in sass.split("Function : ")
+                if part.split("\n", 1)[0].find("decoder_tail_wgmma_kernel") >= 0)
+    print(f"# K3 bf16 decoder_tail_wgmma_kernel: {hgmma} HGMMA instructions in its SASS")
+    if not hgmma:
+        fail("no HGMMA in the bf16 decoder-tail kernel")
     sys.stdout.flush()
 
     # ---- 3. kernels at production shapes ----
@@ -226,31 +323,38 @@ def main() -> int:
         ids = knn(pts, q, 64)
         ids_p = knn_plain(pts, q, 64)
         torch.cuda.synchronize()
-        mism = int((ids != ids_p).any(dim=1).sum())
+        mism = int((ids != ids_p).sum())
         err = id_distance_err(ids, ids_p)
-        print(f"# K1 knn k=64: {mism} of {c} queries with other ids than the plain version")
+        check(f"K1 knn k=64 on {c} queries (ids differing)", float(mism), 0.0)
         check("K1 knn k=64 (distance of returned ids)", err, 0.0)
         sup = pts[torch.randperm(n, generator=gen, device=dev)[:10000]]
         for k in (16, 1):
             e = int((knn(sup, sup, k) != knn_plain(sup, sup, k)).sum())
             check(f"K1 knn k={k} on 10000 points (ids differing)", float(e), 0.0)
+        knn_edge_cases(check, gen, dev, pts, q)
+        # K1 is timed as the field evaluator calls it, with the cloud's
+        # blocking made once per shape; that blocking's own time is printed
+        blk = knn_blocks(pts)
+        print(f"# K1 blocking of the {n}-point cloud (Morton sort and boxes, once per "
+              f"cloud): {cuda_ms(lambda: knn_blocks(pts), reps=10):.3f} ms", flush=True)
 
         def lib_knn():
             for s in range(0, c, 4096):
                 torch.topk(torch.cdist(q[s:s + 4096], pts), 64, largest=False)
 
-        kb = n * 12 + c * 12 + c * 64 * 8
-        b_ms, b_by = bound_ms(kb, c * n * 8.0, "f32")
+        b_ms, b_by = bound_ms(n * 12 + c * 12 + c * 64 * 8, knn_needed_ops(pts, q, ids_p),
+                              "f32")
         results["knn"] = dict(
             name="knn", route="cuda", source="ppsurf_tpu_torch/csrc/knn.cu",
             replaces="ppsurf_tpu/ops/knn_pallas.py:48",
-            max_abs_err=err, ms=cuda_ms(lambda: knn(pts, q, 64)),
+            max_abs_err=err, ms=cuda_ms(lambda: knn(pts, q, 64, blocks=blk), reps=10),
             plain_ms=cuda_ms(lambda: knn_plain(pts, q, 64), reps=2),
             bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_knn, reps=2),
             shape=f"N={n} Q={c} k=64 f32",
         )
+        del ids_p
 
-        # K1 at the candidate refinement's kc=192 (the TopK<256> build), the
+        # K1 at the candidate refinement's kc=192 (the KMAX=256 build), the
         # queries taken as edge midpoints
         ids_c = knn(pts, q, KC)
         ids_cp = knn_plain(pts, q, KC)
@@ -264,16 +368,17 @@ def main() -> int:
             for s in range(0, c, 4096):
                 torch.topk(torch.cdist(q[s:s + 4096], pts), KC, largest=False)
 
-        b_ms, b_by = bound_ms(n * 12 + c * 12 + c * KC * 8, c * n * 8.0, "f32")
+        b_ms, b_by = bound_ms(n * 12 + c * 12 + c * KC * 8, knn_needed_ops(pts, q, ids_cp),
+                              "f32")
         results["knn_k192"] = dict(
             name="knn_k192", route="cuda", source="ppsurf_tpu_torch/csrc/knn.cu",
             replaces="ppsurf_tpu/ops/knn_pallas.py:48",
-            max_abs_err=err, ms=cuda_ms(lambda: knn(pts, q, KC), reps=3),
+            max_abs_err=err, ms=cuda_ms(lambda: knn(pts, q, KC, blocks=blk), reps=10),
             plain_ms=cuda_ms(lambda: knn_plain(pts, q, KC), reps=2),
             bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib_knn_c, reps=2),
             shape=f"N={n} Q={c} k={KC} f32",
         )
-        del ids_cp
+        del ids_cp, blk
 
         # K2 on the distances of an iterate near each midpoint to its kc
         # candidates, with exact ties forced in every fifth row
@@ -338,8 +443,9 @@ def main() -> int:
         del slab
 
         # (max, mean) |kernel - plain| limits over scale. bf16: the sound
-        # kernels read at most 8.5e-3 and 3.6e-7; kernels with one rounding
-        # step removed read at least 1.3e-5 mean, K4's at least 2.7e-2 max
+        # kernels read at most 8.5e-3 and 1.2e-6 (K3 on the tensor cores;
+        # K4, K5 3.6e-7); kernels with one rounding step removed read at
+        # least 1.3e-5 mean, K4's at least 2.7e-2 max
         # (chip_rounding_control.py, PERF.md)
         for dt, tag, tol in ((torch.bfloat16, "bf16", (1.6e-2, 2e-6)),
                              (torch.float32, "f32", (1e-4, 2e-6))):
@@ -362,6 +468,40 @@ def main() -> int:
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
                     shape=f"C={c} k=64 L=256 heads=64 bf16",
                 )
+                # a yardstick only, never called by the port: the four
+                # products alone as bf16 torch.matmul on the gathered input
+                xg = lat[ids].reshape(-1, 256)
+
+                def four_products():
+                    for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv):
+                        torch.matmul(xg, wt)
+
+                print(f"# K3 yardstick: fc2, fc3, fc_query, fc_value as bf16 torch.matmul "
+                      f"on the gathered ({xg.shape[0]}, 256) input: "
+                      f"{cuda_ms(four_products, reps=3):.3f} ms", flush=True)
+                del xg
+                # a control, not a check: the plain version with its four
+                # products as bf16 torch.matmul (tensor cores, f32
+                # accumulation in the library's order) against the plain
+                # version, to read how far accumulation order alone moves K3
+                import ppsurf_tpu_torch.ops.decoder_tail as tail_mod
+
+                def dense_tc(x, kernel, bias, dt):
+                    y = torch.matmul(x.to(dt), kernel.to(dt))
+                    return y if bias is None else (y.float() + bias.to(dt).float()).to(dt)
+
+                plain_dense = tail_mod.dense
+                tail_mod.dense = dense_tc
+                try:
+                    d = (decoder_tail_plain(lat, pts, q, ids, tabs).float() - ref.float()).abs()
+                finally:
+                    tail_mod.dense = plain_dense
+                scale = max(1.0, float(ref.float().abs().max()))
+                print(f"# K3 control: plain version with bf16 tensor-core products vs plain "
+                      f"version: max_abs_err/scale {float(d.max()) / scale:.3e}, "
+                      f"mean_abs_err/scale {float(d.mean()) / scale:.3e} (limits "
+                      f"{tol[0]:.1e}, {tol[1]:.1e})", flush=True)
+                del d
             del out, ref
 
             pt = pointnet_tables(net.point_net)
@@ -455,7 +595,8 @@ def main() -> int:
           f"refine {args.refine}: {total:.2f} s; phases "
           + " ".join(f"{k}={v:.2f}s" for k, v in timings.items()))
     print(f"# e2e field queries {queries}, mesh {mesh.vertices.shape[0]} vertices "
-          f"{mesh.faces.shape[0]} faces; launches {json.dumps(launches)}", flush=True)
+          f"{mesh.faces.shape[0]} faces (with the CUDA-core K1 and K3: 323687 vertices 647036 "
+          f"faces at res 257); launches {json.dumps(launches)}", flush=True)
     for name, res in results.items():
         res["launches"] = launches[name]
     n_ref, iters = refine_in["v"].shape[0], refine_in["iters"]
@@ -469,6 +610,27 @@ def main() -> int:
 
     # ---- 5. candidate path against plain path on the card ----
     with torch.inference_mode():
+        # where K3's bf16 results moved by an ulp, the mesh moves only
+        # where the field is near zero: the field near the mesh with the
+        # kernel and with its plain version, and where their signs differ
+        import ppsurf_tpu_torch.recon.field as field_mod
+
+        rng_m = np.random.RandomState(2)
+        near = mesh.vertices[rng_m.randint(0, mesh.vertices.shape[0], 65536)]
+        near = (near + rng_m.randn(*near.shape) / args.resolution).astype(np.float32)
+        v_kernel = ev(near)
+        field_mod.decoder_tail = decoder_tail_plain
+        try:
+            v_plain = ev(near)
+        finally:
+            field_mod.decoder_tail = decoder_tail
+        flips = np.sign(v_kernel) != np.sign(v_plain)
+        at = np.abs(v_kernel[flips])
+        print(f"# bf16 field at {near.shape[0]} points within a voxel of the mesh, K3 kernel vs "
+              f"its plain version: signs differ at {int(flips.sum())}, |field| there at most "
+              f"{float(at.max()) if at.size else 0.0:.3e} (median |field| "
+              f"{float(np.median(np.abs(v_kernel))):.3e}); max |difference| "
+              f"{float(np.abs(v_kernel - v_plain).max()):.3e}", flush=True)
         names = ("v", "v1", "v2", "p1", "p2")
         first = morton_order(refine_in["v"], *ev._bbox)[:ev.chunk]
         args = [refine_in[k][first] for k in names]

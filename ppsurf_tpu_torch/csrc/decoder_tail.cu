@@ -2,12 +2,29 @@
 //
 // Replaces the TPU kernel `_decoder_tail_kernel`
 // (ppsurf_tpu/ops/decoder_pallas.py:49). Design and bounds: see
-// ppsurf_tpu_torch/ops/decoder_tail.py. One block of 256 threads handles one
-// query: it gathers the k=64 neighbours' projected latents straight from the
-// (N, 256) table, so the (C*k, 256) gathered tensor never exists, keeps the
-// 64 x 256 activations in shared memory through fc2, fc3, fc_query and
-// fc_value, and writes the attention-pooled (256,) feature.
+// ppsurf_tpu_torch/ops/decoder_tail.py. Both builds gather the k=64
+// neighbours' projected latents straight from the (N, 256) table, so the
+// (C*k, 256) gathered tensor never exists, keep a query's 64 x 256
+// activations in shared memory through fc2, fc3, fc_query and fc_value,
+// and write the attention-pooled (256,) feature.
+//
+// bf16 (`decoder_tail_wgmma_kernel`): the four products run on the tensor
+// cores (`wgmma` m64n128k16 / m64n64k16). Persistent blocks, one per SM,
+// of two consumer warpgroups (two queries at a time) and one producer warp
+// that streams the weights, pre-arranged in the operand layout
+// (`ops/decoder_tail.py::pack_wgmma_weights`), through a four-stage ring of
+// 16 KB slices with 1-D bulk copies and mbarriers. A 256-wide product runs
+// as two 128-column halves; each half adds four 64-deep tensor-core
+// partials in f32 on the CUDA cores. Each epilogue rounds where the plain
+// version rounds and writes the next product's operand into the other
+// shared-memory buffer of the warpgroup, in the swizzled layout.
+//
+// f32 (`decoder_tail_kernel<float>`): one block of 256 threads a query,
+// every product as f32 FMA on the CUDA cores. It stays there: TF32 tensor
+// cores keep 10 mantissa bits and would miss the f32 limit (1e-4 x scale)
+// that the f32 field is held to.
 #include "common.cuh"
+#include "gmma.cuh"
 
 namespace {
 
@@ -21,6 +38,33 @@ using ppsurf::THREADS;
 constexpr int K = 64;       // neighbours per query (= ROWS)
 constexpr int LAT = 256;    // latent width
 constexpr int HEADS = 64;   // attention heads
+
+// softmax over the k neighbours per head, mean over heads -> att (k,);
+// every step rounds to T, sums accumulate in f32. Threads tid < 64 work;
+// `sync` is the barrier of the threads that share the arrays.
+template <typename T, typename Sync>
+__device__ __forceinline__ void head_attention(const float* logits, float* hmax,
+                                               float* hsum, float* att, int tid,
+                                               Sync sync) {
+  if (tid < HEADS) {
+    float m = logits[tid];
+    for (int r = 1; r < K; ++r) m = fmaxf(m, logits[r * (HEADS + 1) + tid]);
+    float s = 0.f;
+    for (int r = 0; r < K; ++r)
+      s += rnd<T>(expf(rnd<T>(logits[r * (HEADS + 1) + tid] - m)));
+    hmax[tid] = m;
+    hsum[tid] = rnd<T>(s);
+  }
+  sync();
+  if (tid < K) {
+    float a = 0.f;
+    for (int hh = 0; hh < HEADS; ++hh)
+      a += rnd<T>(rnd<T>(expf(rnd<T>(logits[tid * (HEADS + 1) + hh] - hmax[hh]))) /
+                  hsum[hh]);
+    att[tid] = rnd<T>(a / HEADS);
+  }
+  sync();
+}
 
 template <typename T>
 constexpr size_t smem_bytes() {
@@ -104,26 +148,7 @@ decoder_tail_kernel(const T* __restrict__ latents, const float* __restrict__ pts
   }
   __syncthreads();
 
-  // softmax over the k neighbours per head, mean over heads; every step
-  // rounds to T, sums accumulate in f32
-  if (tid < HEADS) {
-    float m = logits[tid];
-    for (int r = 1; r < K; ++r) m = fmaxf(m, logits[r * (HEADS + 1) + tid]);
-    float s = 0.f;
-    for (int r = 0; r < K; ++r)
-      s += rnd<T>(expf(rnd<T>(logits[r * (HEADS + 1) + tid] - m)));
-    hmax[tid] = m;
-    hsum[tid] = rnd<T>(s);
-  }
-  __syncthreads();
-  if (tid < K) {
-    float a = 0.f;
-    for (int hh = 0; hh < HEADS; ++hh)
-      a += rnd<T>(rnd<T>(expf(rnd<T>(logits[tid * (HEADS + 1) + hh] - hmax[hh]))) /
-                  hsum[hh]);
-    att[tid] = rnd<T>(a / HEADS);
-  }
-  __syncthreads();
+  head_attention<T>(logits, hmax, hsum, att, tid, [] { __syncthreads(); });
 
   // fc_value, weighted by att and summed over the neighbours in f32
   {
@@ -150,25 +175,334 @@ decoder_tail_kernel(const T* __restrict__ latents, const float* __restrict__ pts
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* latents, const void* pts, const void* queries,
-                   const void* ids, const void* w1, const void* w2,
-                   const void* b2, const void* w3, const void* b3,
-                   const void* wq, const void* bq, const void* wv,
-                   const void* bv, void* out, int c, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<T>();
+// ---- bf16 on the tensor cores ----
+namespace gm = ppsurf::gmma;
+using bf16 = __nv_bfloat16;
+
+constexpr int STAGES = 4;                    // weight ring depth
+constexpr int SLICE = 16384;                 // bytes of one weight slice
+// W2, W3, Wv: (2 column halves x 4 K-tiles) each; Wq: 2 slices of 2 K-tiles
+constexpr int SLICES = 26;
+constexpr int WG_THREADS = 128;
+constexpr int CONSUMERS = 2;                 // warpgroups, one query each
+constexpr int THREADS_WG = CONSUMERS * WG_THREADS + 32;  // + producer warp
+constexpr int ACT_BYTES = K * LAT * 2;       // one bf16 activation operand
+// per-warpgroup small arrays, in floats: rel, ids, att, head max, head
+// sum, per-warp column sums
+constexpr int SMALL_FLOATS = 3 * K + K + K + HEADS + HEADS + 4 * LAT;
+constexpr size_t WG_SMEM = 1024  // alignment slack
+    + STAGES * SLICE + CONSUMERS * 2 * ACT_BYTES
+    + CONSUMERS * SMALL_FLOATS * sizeof(float) + 2 * STAGES * sizeof(uint64_t);
+static_assert(K * (HEADS + 1) * sizeof(float) <= ACT_BYTES, "logits alias an operand");
+
+// the dense epilogue's rounding (`decoder_pallas.py:22-26`): the product
+// rounds to bf16, then its sum with the bias
+__device__ __forceinline__ float dense_out(float acc, float b) {
+  return rnd<bf16>(rnd<bf16>(acc) + b);
+}
+
+struct Ring {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage = 0;
+  uint32_t phase = 0;
+
+  __device__ __forceinline__ uint32_t wait() {
+    gm::mbar_wait(&full[stage], phase);
+    return gm::smem_u32(slots + stage * SLICE);
+  }
+  __device__ __forceinline__ void release() {
+    gm::mbar_arrive(&empty[stage]);
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// total = sum over four 64-deep K-tiles of a fresh tensor-core partial,
+// added on the CUDA cores in f32 (round to nearest). Tensor-core
+// accumulation over all of K=256 (bf16 torch.matmul, the smoke's K3
+// control) reads about twice as far from the plain version's f32 products
+// (PERF.md, Findings).
+template <int N>
+__device__ __forceinline__ void add_partial(float (&total)[N / 2], float (&part)[N / 2],
+                                            int tile) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) total[i] = tile ? total[i] + part[i] : part[i];
+}
+
+// total (64 x 128) = act (64 x 256) @ W[:, half]: four 16 KB slices, one
+// K-tile of the half's 128 columns each
+__device__ __forceinline__ void mma_half(float (&total)[64], uint32_t act, Ring& ring) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint32_t w = ring.wait();
+    float part[64];
+    gm::fence_operand(part);
+    gm::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      gm::wgmma_m64n128k16(part, gm::desc_sw128(act + s * 8192 + kk * 32),
+                           gm::desc_sw128(w + kk * 32), kk);
+    gm::wgmma_commit();
+    gm::wgmma_wait<0>();
+    gm::fence_operand(part);
+    ring.release();
+    add_partial<128>(total, part, s);
+  }
+}
+
+// total (64 x 64) = act (64 x 256) @ Wq: two slices of two K-tiles
+__device__ __forceinline__ void mma_query(float (&total)[32], uint32_t act, Ring& ring) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const uint32_t w = ring.wait();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      float part[32];
+      gm::fence_operand(part);
+      gm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        gm::wgmma_m64n64k16(part, gm::desc_sw128(act + (2 * s + t) * 8192 + kk * 32),
+                            gm::desc_sw128(w + t * 8192 + kk * 32), kk);
+      gm::wgmma_commit();
+      gm::wgmma_wait<0>();
+      gm::fence_operand(part);
+      add_partial<64>(total, part, 2 * s + t);
+    }
+    ring.release();
+  }
+}
+
+__global__ void __launch_bounds__(THREADS_WG, 1)
+decoder_tail_wgmma_kernel(const bf16* __restrict__ latents,
+                          const float* __restrict__ pts,
+                          const float* __restrict__ queries,
+                          const int64_t* __restrict__ ids,
+                          const bf16* __restrict__ w1,
+                          const float* __restrict__ b2,
+                          const float* __restrict__ b3,
+                          const float* __restrict__ bq,
+                          const float* __restrict__ bv,
+                          const unsigned char* __restrict__ wpack,
+                          bf16* __restrict__ out, int c) {
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment of the swizzled operands
+  unsigned char* smem = smem_raw + ((1024 - (gm::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* slots = smem;
+  unsigned char* acts = slots + STAGES * SLICE;
+  float* floats = reinterpret_cast<float*>(acts + CONSUMERS * 2 * ACT_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(floats + CONSUMERS * SMALL_FLOATS);
+  Ring ring{slots, bars, bars + STAGES};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      gm::mbar_init(&ring.full[i], 1);
+      gm::mbar_init(&ring.empty[i], CONSUMERS * WG_THREADS);
+    }
+    gm::mbar_fence_init();
+  }
+  __syncthreads();
+  const int pairs = (c + CONSUMERS - 1) / CONSUMERS;
+  const int wg = threadIdx.x / WG_THREADS;
+
+  if (wg == CONSUMERS) {
+    // producer: the same 26 slices for every pair of queries
+    if (threadIdx.x % 32 == 0) {
+      for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+        for (int i = 0; i < SLICES; ++i) {
+          gm::mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
+          gm::mbar_arrive_expect_tx(&ring.full[ring.stage], SLICE);
+          gm::bulk_copy_g2s(slots + ring.stage * SLICE, wpack + i * SLICE, SLICE,
+                            &ring.full[ring.stage]);
+          if (++ring.stage == STAGES) {
+            ring.stage = 0;
+            ring.phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup `wg`: thread t, warp w, lane l. Its two operand
+  // buffers: h1 and h3 live in act0, h2 and then the logits in act1.
+  const int t = threadIdx.x % WG_THREADS;
+  const int w = t >> 5;
+  const int l = t & 31;
+  unsigned char* act0 = acts + wg * 2 * ACT_BYTES;
+  unsigned char* act1 = act0 + ACT_BYTES;
+  float* logits = reinterpret_cast<float*>(act1);
+  float* rel = floats + wg * SMALL_FLOATS;
+  int* nid = reinterpret_cast<int*>(rel + 3 * K);
+  float* att = reinterpret_cast<float*>(nid + K);
+  float* hmax = att + K;
+  float* hsum = hmax + HEADS;
+  float* part = hsum + HEADS;
+  auto sync = [wg] { gm::named_barrier(1 + wg, WG_THREADS); };
+  const int r0 = 16 * w + (l >> 2);  // accumulator rows r0 and r0 + 8
+  const int cl = 2 * (l & 3);        // accumulator column offset in an n8 block
+
+#pragma unroll 1
+  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    // the second query of an odd last pair repeats the last one, unstored
+    const int cq = min(CONSUMERS * pair + wg, c - 1);
+    const bool store = CONSUMERS * pair + wg < c;
+
+    // h = relu(x + rnd(rel @ W1)), x the gathered projected latents
+    if (t < K) {
+      const int j = static_cast<int>(ids[static_cast<int64_t>(cq) * K + t]);
+      nid[t] = j;
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        rel[t * 3 + d] = rnd<bf16>(__fsub_rn(queries[3 * cq + d], pts[3 * j + d]));
+    }
+    sync();
+    {
+      const int col = (t & 31) * 8;  // this thread's 8 columns, every 4th row
+      float wa[8], wb[8], wc[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        wa[e] = __bfloat162float(w1[col + e]);
+        wb[e] = __bfloat162float(w1[LAT + col + e]);
+        wc[e] = __bfloat162float(w1[2 * LAT + col + e]);
+      }
+#pragma unroll 2
+      for (int r = t >> 5; r < K; r += 4) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            latents + static_cast<int64_t>(nid[r]) * LAT + col);
+        const bf16* x = reinterpret_cast<const bf16*>(&raw);
+        const float* rr = rel + r * 3;
+        uint4 packed;
+        bf16* h = reinterpret_cast<bf16*>(&packed);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float rw = rnd<bf16>(fmaf(rr[2], wc[e], fmaf(rr[1], wb[e], rr[0] * wa[e])));
+          h[e] = __float2bfloat16_rn(fmaxf(rnd<bf16>(__bfloat162float(x[e]) + rw), 0.f));
+        }
+        *reinterpret_cast<uint4*>(act0 + gm::swizzle_offset(r, col, K)) = packed;
+      }
+    }
+    gm::fence_proxy_async();
+    sync();
+
+    // fc2 (act0 -> act1), fc3 (act1 -> act0), +relu, a column half at a time
+#pragma unroll 1
+    for (int layer = 0; layer < 2; ++layer) {
+      const uint32_t src = gm::smem_u32(layer == 0 ? act0 : act1);
+      unsigned char* dst = layer == 0 ? act1 : act0;
+      const float* bias = layer == 0 ? b2 : b3;
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float acc[64];
+        mma_half(acc, src, ring);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * half + 8 * j + cl;
+          const float bx = bias[col], by = bias[col + 1];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float y0 = fmaxf(dense_out(acc[4 * j + 2 * h], bx), 0.f);
+            const float y1 = fmaxf(dense_out(acc[4 * j + 2 * h + 1], by), 0.f);
+            *reinterpret_cast<__nv_bfloat162*>(
+                dst + gm::swizzle_offset(r0 + 8 * h, col, K)) = __floats2bfloat162_rn(y0, y1);
+          }
+        }
+      }
+      gm::fence_proxy_async();
+      sync();
+    }
+
+    // fc_query (act0) -> head logits (rounded like a dense output) in act1
+    {
+      float accq[32];
+      mma_query(accq, gm::smem_u32(act0), ring);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + cl;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          logits[(r0 + 8 * (e >> 1)) * (HEADS + 1) + col + (e & 1)] =
+              dense_out(accq[4 * j + e], bq[col + (e & 1)]);
+      }
+    }
+    sync();
+    head_attention<bf16>(logits, hmax, hsum, att, t, sync);
+
+    // fc_value (act0), weighted by att and summed over the neighbours in f32
+    {
+      const float a0 = att[r0], a1 = att[r0 + 8];
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float acc[64];
+        mma_half(acc, gm::smem_u32(act0), ring);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * half + 8 * j + cl;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float b = bv[col + e];
+            float s = a0 * dense_out(acc[4 * j + e], b) + a1 * dense_out(acc[4 * j + 2 + e], b);
+            s += __shfl_xor_sync(0xffffffffu, s, 4);
+            s += __shfl_xor_sync(0xffffffffu, s, 8);
+            s += __shfl_xor_sync(0xffffffffu, s, 16);
+            if (l < 4) part[w * LAT + col + e] = s;
+          }
+        }
+      }
+    }
+    sync();
+    if (store) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = t + WG_THREADS * h;
+        const float s = part[col] + part[LAT + col] + part[2 * LAT + col] + part[3 * LAT + col];
+        out[static_cast<int64_t>(cq) * LAT + col] = __float2bfloat16_rn(s);
+      }
+    }
+    sync();
+  }
+}
+
+cudaError_t launch_f32(const void* latents, const void* pts, const void* queries,
+                       const void* ids, const void* w1, const void* w2,
+                       const void* b2, const void* w3, const void* b3,
+                       const void* wq, const void* bq, const void* wv,
+                       const void* bv, void* out, int c, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<float>();
   cudaError_t err = cudaFuncSetAttribute(
-      decoder_tail_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decoder_tail_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  decoder_tail_kernel<T><<<c, THREADS, bytes, stream>>>(
-      static_cast<const T*>(latents), static_cast<const float*>(pts),
-      static_cast<const float*>(queries), static_cast<const int64_t*>(ids),
-      static_cast<const T*>(w1), static_cast<const T*>(w2),
-      static_cast<const float*>(b2), static_cast<const T*>(w3),
-      static_cast<const float*>(b3), static_cast<const T*>(wq),
-      static_cast<const float*>(bq), static_cast<const T*>(wv),
-      static_cast<const float*>(bv), static_cast<T*>(out));
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  decoder_tail_kernel<float><<<c, THREADS, bytes, stream>>>(
+      f(latents), f(pts), f(queries), static_cast<const int64_t*>(ids), f(w1),
+      f(w2), f(b2), f(w3), f(b3), f(wq), f(bq), f(wv), f(bv),
+      static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* latents, const void* pts, const void* queries,
+                        const void* ids, const void* w1, const void* b2,
+                        const void* b3, const void* bq, const void* bv,
+                        const void* wpack, void* out, int c, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_tail_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(WG_SMEM));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return err;
+  const int pairs = (c + CONSUMERS - 1) / CONSUMERS;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  decoder_tail_wgmma_kernel<<<min(pairs, sms), THREADS_WG, WG_SMEM, stream>>>(
+      static_cast<const bf16*>(latents), f(pts), f(queries),
+      static_cast<const int64_t*>(ids), static_cast<const bf16*>(w1), f(b2), f(b3),
+      f(bq), f(bv), static_cast<const unsigned char*>(wpack), static_cast<bf16*>(out), c);
   return cudaGetLastError();
 }
 
@@ -180,16 +514,15 @@ extern "C" int ppsurf_decoder_tail(const void* latents, const void* pts,
                                    const void* b2, const void* w3,
                                    const void* b3, const void* wq,
                                    const void* bq, const void* wv,
-                                   const void* bv, void* out, int c, int k,
-                                   int latent, int heads, int is_bf16,
-                                   void* stream) {
-  if (k != K || latent != LAT || heads != HEADS || c < 0)
+                                   const void* bv, const void* wpack, void* out,
+                                   int c, int k, int latent, int heads,
+                                   int is_bf16, void* stream) {
+  if (k != K || latent != LAT || heads != HEADS || c < 0 || (is_bf16 && !wpack))
     return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(latents, pts, queries, ids, w1, w2, b2, w3,
-                                 b3, wq, bq, wv, bv, out, c, s);
-  return launch<float>(latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq,
-                       wv, bv, out, c, s);
+    return launch_bf16(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, s);
+  return launch_f32(latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv, bv,
+                    out, c, s);
 }

@@ -16,16 +16,30 @@ bias folded in per shape, `FieldEvaluator`) and rel = query - neighbour.
 The CUDA kernel (`csrc/decoder_tail.cu`) takes the (N, L) latent table,
 the cloud and the kNN ids and gathers inside: the (C*k, L) gathered tensor
 (1.6 GB in bf16 at C=50 048) that the TPU path materialises never exists.
-One block of 256 threads runs one query with its 64 x 256 activations in
-shared memory; each thread holds an 8 x 8 register tile of every product.
 
 What bounds it on an H100: operations. One query is 27.4 MFLOP
 (64 rows x (3*256 + 3*256^2 + 256*64) multiply-adds x 2), 1.37 TFLOP per
 50 048-query chunk: 1.4 ms at the bf16 tensor-core peak of 989 TFLOP/s,
 while its bytes (latent table, ids, output) move in well under 0.1 ms.
-This first kernel multiplies on the CUDA cores (f32 FMA, 67 TFLOP/s peak),
-so it sits far above the tensor-core bound; moving the products to
-`wgmma` is the next step for it.
+
+- bf16 (the reconstruction's dtype): one query's 64 neighbours are the 64
+  rows of one `wgmma` tile. Persistent blocks (one per SM) run two
+  queries at a time, one per consumer warpgroup; fc2, fc3, fc_query and
+  fc_value are `wgmma` m64n128k16 / m64n64k16 products with f32
+  accumulators in registers, the activations a swizzled bf16 operand in
+  shared memory that each epilogue overwrites with the next layer's
+  input. Each 256-wide product runs as two 128-column halves, and each
+  half sums four 64-deep partial products on the CUDA cores in f32:
+  tensor-core accumulation over all of K=256 (bf16 `torch.matmul`, the
+  smoke's K3 control) reads about twice as far from the plain version's
+  f32 products (PERF.md, Findings). A producer warp
+  streams the 416 KB of weights, laid out once per table in the operand
+  layout (`pack_wgmma_weights`), through a ring of four 16 KB slices with
+  1-D bulk copies, so each slice serves both queries: about 208 KB of L2
+  reads a query.
+- f32: one block of 256 threads a query, each thread an 8 x 8 register
+  tile of every product on the CUDA cores (f32 FMA, 67 TFLOP/s peak).
+  TF32 tensor cores would miss the f32 limit the field is held to.
 
 Rounding follows the plain version below and `decoder_pallas.py:22-26,
 38-46, 72-80`: every product accumulates in f32 and rounds to the compute
@@ -36,6 +50,7 @@ weighted sum accumulates in f32.
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import torch
 
@@ -46,7 +61,8 @@ from ppsurf_tpu_torch.ops import kernels
 @dataclasses.dataclass
 class DecoderTables:
     """Decoder-tail weights in the compute dtype (biases f32, rounded to
-    it): w1 (3, L) rel rows of fc1; w* (in, out)."""
+    it): w1 (3, L) rel rows of fc1; w* (in, out); in bf16 also `wpack`,
+    w2, w3, wq and wv in the tensor-core kernel's operand layout."""
 
     dt: torch.dtype
     w1: torch.Tensor
@@ -58,10 +74,45 @@ class DecoderTables:
     bq: torch.Tensor
     wv: torch.Tensor
     bv: torch.Tensor
+    wpack: typing.Optional[torch.Tensor] = None
 
     @property
     def heads(self) -> int:
         return self.wq.shape[1]
+
+
+def swizzle_tile(wt: torch.Tensor) -> torch.Tensor:
+    """A (rows, 64) bf16 K-major tile in the 128-byte-swizzled layout that
+    `wgmma` reads (`csrc/gmma.cuh`): row r's 16-byte unit u is stored at
+    unit u ^ (r % 8). Returns the (rows * 64,) image."""
+    rows = wt.shape[0]
+    units = wt.reshape(rows, 8, 8)
+    r = torch.arange(rows, device=wt.device)[:, None]
+    src = torch.arange(8, device=wt.device)[None, :] ^ (r % 8)
+    return units.gather(1, src[..., None].expand(rows, 8, 8)).reshape(-1)
+
+
+def unswizzle_tile(image: torch.Tensor, rows: int) -> torch.Tensor:
+    """Inverse of `swizzle_tile` (the swizzle is its own inverse)."""
+    return swizzle_tile(image.reshape(rows, 64)).reshape(rows, 64)
+
+
+def pack_wgmma_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
+                       wv: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's weight stream: 26 slices of 16 KB, in the order it
+    multiplies. A weight (in=256, out) is stored transposed (K-major) in
+    tiles of 64 inputs. W2, W3 and Wv each give 8 slices, one (128 x 64)
+    tile each, for output columns 0-127 then 128-255, inputs 0-63 first;
+    Wq gives 2 slices of two (64 x 64) tiles (inputs 0-127, 128-255)."""
+    def tile(w, cols, k):
+        return swizzle_tile(w.t()[cols, 64 * k:64 * (k + 1)].contiguous())
+
+    def halves(w):
+        return [tile(w, slice(128 * h, 128 * (h + 1)), k) for h in range(2) for k in range(4)]
+
+    query = [torch.cat([tile(wq, slice(None), 2 * s + t) for t in range(2)])
+             for s in range(2)]
+    return torch.cat(halves(w2) + halves(w3) + query + halves(wv)).contiguous()
 
 
 def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
@@ -74,13 +125,16 @@ def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
     def b(t):
         return t.detach().to(dt).float().contiguous()
 
-    return DecoderTables(
+    t = DecoderTables(
         dt=dt, w1=w(projection.fc1.kernel[lat:]),
         w2=w(projection.fc2.kernel), b2=b(projection.fc2.bias),
         w3=w(projection.fc3.kernel), b3=b(projection.fc3.bias),
         wq=w(projection.fc_query.kernel), bq=b(projection.fc_query.bias),
         wv=w(projection.fc_value.kernel), bv=b(projection.fc_value.bias),
     )
+    if dt == torch.bfloat16 and (lat, t.heads) == (256, 64):
+        t.wpack = pack_wgmma_weights(t.w2, t.w3, t.wq, t.wv)
+    return t
 
 
 def decoder_tail_plain(latents: torch.Tensor, pts: torch.Tensor,
@@ -125,13 +179,16 @@ def decoder_tail(latents: torch.Tensor, pts: torch.Tensor, queries: torch.Tensor
             f"decoder_tail kernel is built for k=64, L=256, 64 heads; got "
             f"k={k}, L={lat}, heads={t.heads}"
         )
+    if t.dt == torch.bfloat16 and (t.wpack is None or not t.wpack.is_cuda):
+        raise ValueError("decoder_tail: bf16 tables need `wpack` on the card "
+                         "(made by decoder_tables)")
     out = torch.empty((c, lat), dtype=t.dt, device=latents.device)
     if c:
         kernels.launch(
             "decoder_tail", "ppsurf_decoder_tail",
             *(kernels.ptr(a) for a in (
                 latents, pts, queries, ids, t.w1, t.w2, t.b2, t.w3, t.b3,
-                t.wq, t.bq, t.wv, t.bv, out)),
+                t.wq, t.bq, t.wv, t.bv, t.wpack, out)),
             c, k, lat, t.heads, kernels.dtype_code(t.dt),
         )
     return out

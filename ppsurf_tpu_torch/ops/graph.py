@@ -12,7 +12,7 @@ import typing
 
 import torch
 
-from ppsurf_tpu_torch.ops.knn import knn
+from ppsurf_tpu_torch.ops.knn import knn, knn_blocks
 from ppsurf_tpu_torch.ops.subsample import draw_subsample, voxel_subsample
 
 KNN_K = 16  # FKAConv kernel neighborhood (`nn.py:465` kernel_size=16)
@@ -50,8 +50,12 @@ def build_fkaconv_graph(pts: torch.Tensor, draws: Draws) -> typing.Dict[str, tor
         idx = voxel_subsample(supports[-1], sizes[lvl], tie, rot_u)
         supports.append(supports[-1][idx])
 
+    # K1's blocking of each support level, made once for its kNN calls
+    blocks = {id(p): knn_blocks(p) for p in supports} if pts.is_cuda else {}
+
     def nn_ids(points, queries, k):
-        return knn(points, queries, min(k, points.shape[0]))[None]
+        return knn(points, queries, min(k, points.shape[0]),
+                   blocks=blocks.get(id(points)))[None]
 
     s0, s1, s2, s3, s4 = supports
     graph = {f"support{i}": supports[i][None] for i in range(1, 5)}

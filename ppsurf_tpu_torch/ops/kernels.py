@@ -26,7 +26,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 SOURCES = ("knn.cu", "decoder_tail.cu", "pointnet.cu", "select.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "gmma.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
@@ -49,11 +49,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: (argtypes); every one returns a cudaError_t as int
 _SIGNATURES = {
-    # pts, valid|NULL, queries, out ids, n, nq, k, stream
-    "ppsurf_knn": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv, bv, out,
-    # c, k, latent, heads, is_bf16, stream
-    "ppsurf_decoder_tail": [_P] * 14 + [_I] * 5 + [_P],
+    # pts4, boxes, queries, out ids, blocks, nq, k, points a block, stream
+    "ppsurf_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv, bv,
+    # wpack|NULL, out, c, k, latent, heads, is_bf16, stream
+    "ppsurf_decoder_tail": [_P] * 15 + [_I] * 5 + [_P],
     # patches, w0a, w0b, ws1, ws2, ws3, aff, b_out, pooled_out, c, p, is_bf16, stream
     "ppsurf_pointnet_trunk": [_P] * 9 + [_I] * 3 + [_P],
     # x2, wc1, wc2, wc3, wq, wv, aff, bqv, out, c, p, is_bf16, stream
@@ -113,8 +113,12 @@ def build() -> KernelLibrary:
     digest = _digest()
     out_dir = os.path.join(BUILD_DIR, digest)
     lib_path = os.path.join(out_dir, "libppsurf_kernels.so")
+    log_path = os.path.join(out_dir, "build.log")  # what nvcc printed, kept with it
     log = ""
-    if not os.path.isfile(lib_path):
+    if os.path.isfile(lib_path) and os.path.isfile(log_path):
+        with open(log_path) as fp:
+            log = fp.read()
+    else:
         os.makedirs(out_dir, exist_ok=True)
         nvcc = _nvcc()
         procs = []
@@ -142,6 +146,9 @@ def build() -> KernelLibrary:
         log += f"== link\n{link.stdout}"
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{log}")
+        with open(f"{log_path}.{os.getpid()}.tmp", "w") as fp:
+            fp.write(log)
+        os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
         os.replace(tmp, lib_path)
     _LIBRARY = KernelLibrary(lib_path, log, time.perf_counter() - t0)
     return _LIBRARY

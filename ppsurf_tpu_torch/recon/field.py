@@ -22,8 +22,8 @@ and `source/poco_utils.py:67-82`):
   where every round is a full field evaluation with its own kNN.
 
 The cloud is Morton-sorted once per shape and every query batch per call,
-so K1's seed window finds the true neighbours; results are scattered back
-to the caller's order.
+so neighbouring queries share K1's blocks; results are scattered back to
+the caller's order.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ import torch
 
 from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail
 from ppsurf_tpu_torch.ops.graph import Draws, build_fkaconv_graph, draw_graph
-from ppsurf_tpu_torch.ops.knn import dist2_rows, knn
+from ppsurf_tpu_torch.ops.knn import dist2_rows, knn, knn_blocks
 from ppsurf_tpu_torch.ops.morton import morton_order
 from ppsurf_tpu_torch.ops.patches import patch_space
 from ppsurf_tpu_torch.ops.pointnet_att import pointnet_att, pointnet_tables
@@ -140,6 +140,8 @@ class FieldEvaluator:
         self._bbox = (pts.min(axis=0), pts.max(axis=0))
         order = morton_order(pts, *self._bbox)
         self.pts = torch.from_numpy(np.ascontiguousarray(pts[order], np.float32)).to(self.device)
+        # K1's blocking of the cloud, made once for every chunk's kNN
+        self.blocks = knn_blocks(self.pts) if self.pts.is_cuda else None
         # fold fc1's latent rows + bias into the per-point latents once per
         # shape (`field.py:469-479, 540-563`): fc1 keeps the rel term only
         fc1 = net.projection.fc1
@@ -158,7 +160,7 @@ class FieldEvaluator:
         are q's k nearest cloud ids, nearest first, where the caller has
         them (the candidate refinement); else K1 finds them."""
         if ids is None:
-            ids = knn(self.pts, q, self.k)
+            ids = knn(self.pts, q, self.k, blocks=self.blocks)
         pooled = decoder_tail(self.latents, self.pts, q, ids, self.decoder)
         feat_proj = self.net.projection.fc8(pooled)
         patches = patch_space(self.pts[ids[:, : self.spec.num_pts_local]], q)
@@ -259,7 +261,7 @@ class FieldEvaluator:
             e1, e2 = v1[s:s + c], v2[s:s + c]
             mid = 0.5 * (e1 + e2)
             r = 0.5 * torch.sqrt(((e1 - e2) ** 2).sum(dim=-1))
-            ids_c = knn(self.pts, mid, kc)  # (C, kc), nearest first
+            ids_c = knn(self.pts, mid, kc, blocks=self.blocks)  # (C, kc), nearest first
             cpts = self.pts[ids_c]  # (C, kc, 3)
             d2m = dist2_rows(mid, cpts)
             tau_k = torch.sqrt(d2m[:, k - 1])

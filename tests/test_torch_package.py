@@ -5,7 +5,9 @@
 - entry points default to CUDA and raise where there is none;
 - the committed weights map onto the port's network key for key;
 - on a card, each kernel wrapper launches its kernel and agrees with its
-  plain version (marked `cuda`: skips on a machine without one).
+  plain version, K1 exactly also on duplicates, clusters with far queries,
+  shuffled clouds and masks with fewer valid points than k (marked `cuda`:
+  skips on a machine without one).
 """
 from __future__ import annotations
 
@@ -172,3 +174,29 @@ def test_kernels_match_plain_versions_on_the_card():
     torch.testing.assert_close(pointnet_head(x2, pt), pointnet_head_plain(x2, pt),
                                rtol=1e-4, atol=1e-4)
     assert all(v == 1 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+    # K3 in bf16 (the tensor-core build), within the smoke's bf16 limits
+    tabs16 = decoder_tables(load_network(ppsurf_spec(dtype=torch.bfloat16),
+                                         load_infer_npz(WEIGHTS), dev).projection,
+                            torch.bfloat16)
+    lat16 = lat.to(torch.bfloat16)
+    ref = decoder_tail_plain(lat16, pts, q, ids, tabs16).float()
+    diff = (decoder_tail(lat16, pts, q, ids, tabs16).float() - ref).abs()
+    scale = max(1.0, float(ref.abs().max()))
+    assert float(diff.max()) <= 1.6e-2 * scale and float(diff.mean()) <= 2e-6 * scale
+
+    # K1 edge cases, each exact: k in {1, 16, 64, 192, 256} on a shuffled
+    # cloud, exact duplicates, a cluster with outliers and far queries, and
+    # fewer valid points than k
+    dup = torch.rand(10, 3, generator=g, device=dev).repeat_interleave(200, dim=0)
+    dup = torch.cat([dup, torch.rand(500, 3, generator=g, device=dev)])
+    cluster = torch.cat([1e-3 * torch.randn(2000, 3, generator=g, device=dev),
+                         10 * torch.randn(50, 3, generator=g, device=dev)])
+    far = torch.cat([cluster[:200], 1e3 + torch.rand(20, 3, generator=g, device=dev)])
+    valid = torch.zeros(3000, dtype=torch.bool, device=dev)
+    valid[torch.randperm(3000, generator=g, device=dev)[:100]] = True
+    cases = ((pts[torch.randperm(3000, generator=g, device=dev)], q, None),
+             (dup, dup[::7], None), (cluster, far, None), (pts, q[:200], valid))
+    for p, qq, v in cases:
+        for k in (1, 16, 64, 192, 256):
+            assert torch.equal(knn(p, qq, k, v), knn_plain(p, qq, k, v)), (k, p.shape)

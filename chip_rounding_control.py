@@ -23,14 +23,22 @@ SMOKE_ARGS = ["--resolution", "33", "--passes", "1", "--refine", "1"]
 
 # name -> (source, text, the text with one rounding step removed)
 MUTANTS = {
-    "dense output not rounded before its bias (K4, K5)": (
-        "ppsurf_tpu_torch/csrc/common.cuh",
-        "float y = rnd<T>(rnd<T>(acc[i][j]) + b);",
-        "float y = rnd<T>(acc[i][j] + b);"),
-    "bias sum not rounded before the BN affine (K4, K5)": (
-        "ppsurf_tpu_torch/csrc/common.cuh",
-        "float y = rnd<T>(rnd<T>(acc[i][j]) + b);",
-        "float y = rnd<T>(acc[i][j]) + b;"),
+    "K4/K5 bf16 epilogue: dense output not rounded before its bias": (
+        "ppsurf_tpu_torch/csrc/pointnet.cu",
+        "float2 y = rnd2(acc0, acc1);",
+        "float2 y = make_float2(acc0, acc1);"),
+    "K4/K5 bf16 epilogue: bias sum not rounded before the BN affine": (
+        "ppsurf_tpu_torch/csrc/pointnet.cu",
+        "y = rnd2(y.x + b.x, y.y + b.y);",
+        "y = make_float2(y.x + b.x, y.y + b.y);"),
+    "K5 bf16 softmax weight not rounded": (
+        "ppsurf_tpu_torch/csrc/pointnet.cu",
+        "const float att = rnd<bf16>(e / s);",
+        "const float att = e / s;"),
+    "K5 bf16 fc_value epilogue: product not rounded before its bias": (
+        "ppsurf_tpu_torch/csrc/pointnet.cu",
+        "const float2 v = rnd2(acc0, acc1);",
+        "const float2 v = make_float2(acc0, acc1);"),
     "K3 wgmma epilogue: product not rounded before its bias (fc2, fc3, fc_query, fc_value)": (
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
         "return rnd<bf16>(rnd<bf16>(acc) + b);",
@@ -39,10 +47,6 @@ MUTANTS = {
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
         "att[tid] = rnd<T>(a / HEADS);",
         "att[tid] = a / HEADS;"),
-    "K5 softmax weight of rows 0-31 not rounded": (
-        "ppsurf_tpu_torch/csrc/pointnet.cu",
-        "att[ra] = rnd<T>(ea / s);",
-        "att[ra] = ea / s;"),
 }
 # what chip_smoke.py needs of the checkout
 NEEDED = ("chip_smoke.py", "ppsurf_tpu_torch", "native", "models_pretrained")

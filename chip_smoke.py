@@ -9,8 +9,10 @@ In order, it:
    limit as nvidia-smi reports them;
 2. builds the CUDA kernels from `ppsurf_tpu_torch/csrc` with nvcc for
    sm_90a, prints the build seconds and ptxas' register report, and fails
-   unless every K1 instantiation has a 0-byte stack frame and the bf16
-   decoder-tail kernel's SASS holds HGMMA (tensor-core) instructions;
+   unless every K1 instantiation has a 0-byte stack frame, the SASS of
+   each bf16 tensor-core kernel (K3 decoder tail, K4 PointNet trunk, K5
+   PointNet head) holds HGMMA instructions, and ptxas reports 0 spill
+   bytes for the K4 and K5 ones;
 3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
    the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
    PointNet) at the production shapes, and the seven T1 selection
@@ -23,9 +25,10 @@ In order, it:
    points than k, each exact; K1 is timed with the cloud's blocking made
    once, as the field evaluator calls it, and the blocking's time is
    printed beside it; K1's bound counts the distances in the blocks its
-   boxes cannot cull; K3's line is followed by the time of its four
-   products alone as bf16 torch.matmul (a yardstick) and by a control:
-   the plain version with those products on the tensor cores;
+   boxes cannot cull; the bf16 lines of K3, K4 and K5 are each followed
+   by the time of the kernel's products alone as bf16 torch.matmul (a
+   yardstick) and by a control: the plain version with those products on
+   the tensor cores;
 4. reconstructs a seeded synthetic 60k-point surface cloud end to end with
    the committed weights in bf16 through `Predictor.reconstruct_shape`,
    with every kernel's launch count reset just before and read just after
@@ -122,24 +125,27 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def stack_frames(log: str) -> typing.Dict[str, int]:
-    """Kernel (demangled template name, e.g. knn_kernel<64>) -> stack-frame
-    bytes, from ptxas' -v report."""
+def ptxas_report(log: str) -> typing.Dict[str, typing.Tuple[int, int]]:
+    """Kernel (short name, with its integer template argument, e.g.
+    knn_kernel<64>, head_wgmma_kernel) -> (stack-frame bytes, spill bytes
+    stored and loaded), from ptxas' -v report."""
     import re
 
-    frames, name = {}, None
+    report, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             # _ZN..._knn_cu_afef58a010knn_kernelILi64EEv... -> knn_kernel<64>
-            t = re.search(r"([a-z_]+kernel)ILi(\d+)E", m.group(1))
-            name = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)
+            t = re.search(r"\d([a-z_]+kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (m.group(1) if t is None else
+                    f"{t.group(1)}<{t.group(2)}>" if t.group(2) else t.group(1))
             continue
-        m = re.search(r"(\d+) bytes stack frame", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name is not None:
-            frames[name] = int(m.group(1))
+            report[name] = (int(m.group(1)), int(m.group(2)) + int(m.group(3)))
             name = None
-    return frames
+    return report
 
 
 def knn_needed_ops(pts, q, ids_plain) -> float:
@@ -256,19 +262,26 @@ def main() -> int:
     for line in lib.log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")) or line.startswith("=="):
             print(f"#   {line.strip()}")
-    frames = stack_frames(lib.log)
-    knn_frames = {name: b for name, b in frames.items() if "knn_kernel" in name}
+    report = ptxas_report(lib.log)
+    knn_frames = {name: r[0] for name, r in report.items() if "knn_kernel" in name}
     for name, b in sorted(knn_frames.items()):
         print(f"# K1 {name}: {b} bytes stack frame")
     if len(knn_frames) != 4 or any(knn_frames.values()):
         fail(f"every K1 instantiation must have a 0-byte stack frame: {knn_frames}")
     sass = run([os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump"), "-sass",
                 lib.path])
-    hgmma = sum(part.count("HGMMA") for part in sass.split("Function : ")
-                if part.split("\n", 1)[0].find("decoder_tail_wgmma_kernel") >= 0)
-    print(f"# K3 bf16 decoder_tail_wgmma_kernel: {hgmma} HGMMA instructions in its SASS")
-    if not hgmma:
-        fail("no HGMMA in the bf16 decoder-tail kernel")
+    for tag, kernel, no_spill in (("K3", "decoder_tail_wgmma_kernel", False),
+                                  ("K4", "trunk_wgmma_kernel", True),
+                                  ("K5", "head_wgmma_kernel", True)):
+        hgmma = sum(part.count("HGMMA") for part in sass.split("Function : ")
+                    if kernel in part.split("\n", 1)[0])
+        frame, spill = report.get(kernel, (None, None))
+        print(f"# {tag} bf16 {kernel}: {hgmma} HGMMA instructions in its SASS; "
+              f"{frame} bytes stack frame, {spill} bytes spilled")
+        if not hgmma:
+            fail(f"no HGMMA in the bf16 {kernel}")
+        if no_spill and spill != 0:
+            fail(f"ptxas reports {spill} spill bytes (or none) for {kernel}")
     sys.stdout.flush()
 
     # ---- 3. kernels at production shapes ----
@@ -442,10 +455,48 @@ def main() -> int:
             del out, ref
         del slab
 
+        # a yardstick only, never called by the port: a kernel's products
+        # alone as bf16 torch.matmul, each on an input of its (rows, K)
+        def yardstick(tag, what, products):
+            def run_all():
+                for x, wt in products:
+                    torch.matmul(x, wt)
+
+            rows = products[0][0].shape[0]
+            print(f"# {tag} yardstick: {what} as bf16 torch.matmul on ({rows}, K) inputs: "
+                  f"{cuda_ms(run_all, reps=3):.3f} ms", flush=True)
+
+        # a control, not a check: a plain version with its dense products as
+        # bf16 torch.matmul (tensor cores, f32 accumulation in the library's
+        # order) against the plain version, to read how far accumulation
+        # order alone moves the kernel's function
+        def control(tag, module, run_plain, refs, tol):
+            def dense_tc(x, kernel, bias, dt):
+                y = torch.matmul(x.to(dt), kernel.to(dt))
+                return y if bias is None else (y.float() + bias.to(dt).float()).to(dt)
+
+            plain_dense = module.dense
+            module.dense = dense_tc
+            try:
+                outs = run_plain()
+            finally:
+                module.dense = plain_dense
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            scale = max([1.0] + [float(r.float().abs().max()) for r in refs])
+            diffs = [(o.float() - r.float()).abs() for o, r in zip(outs, refs)]
+            err = max(float(d.max()) for d in diffs)
+            mean = sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs)
+            print(f"# {tag} control: plain version with bf16 tensor-core products vs plain "
+                  f"version: max_abs_err/scale {err / scale:.3e}, mean_abs_err/scale "
+                  f"{mean / scale:.3e} (limits {tol[0]:.1e}, {tol[1]:.1e})", flush=True)
+
+        import ppsurf_tpu_torch.ops.decoder_tail as tail_mod
+        import ppsurf_tpu_torch.ops.pointnet_att as pn_mod
+
         # (max, mean) |kernel - plain| limits over scale. bf16: the sound
-        # kernels read at most 8.5e-3 and 1.2e-6 (K3 on the tensor cores;
-        # K4, K5 3.6e-7); kernels with one rounding step removed read at
-        # least 1.3e-5 mean, K4's at least 2.7e-2 max
+        # tensor-core kernels read at most 8.5e-3 and 1.2e-6 (K3; K4 2.2e-8
+        # and K5 2.7e-7 mean); kernels with one rounding step removed read
+        # at least 1.4e-5 mean, K4's at least 2.6e-2 max
         # (chip_rounding_control.py, PERF.md)
         for dt, tag, tol in ((torch.bfloat16, "bf16", (1.6e-2, 2e-6)),
                              (torch.float32, "f32", (1e-4, 2e-6))):
@@ -468,40 +519,12 @@ def main() -> int:
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
                     shape=f"C={c} k=64 L=256 heads=64 bf16",
                 )
-                # a yardstick only, never called by the port: the four
-                # products alone as bf16 torch.matmul on the gathered input
                 xg = lat[ids].reshape(-1, 256)
-
-                def four_products():
-                    for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv):
-                        torch.matmul(xg, wt)
-
-                print(f"# K3 yardstick: fc2, fc3, fc_query, fc_value as bf16 torch.matmul "
-                      f"on the gathered ({xg.shape[0]}, 256) input: "
-                      f"{cuda_ms(four_products, reps=3):.3f} ms", flush=True)
+                yardstick("K3", "fc2, fc3, fc_query, fc_value",
+                          [(xg, wt) for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv)])
                 del xg
-                # a control, not a check: the plain version with its four
-                # products as bf16 torch.matmul (tensor cores, f32
-                # accumulation in the library's order) against the plain
-                # version, to read how far accumulation order alone moves K3
-                import ppsurf_tpu_torch.ops.decoder_tail as tail_mod
-
-                def dense_tc(x, kernel, bias, dt):
-                    y = torch.matmul(x.to(dt), kernel.to(dt))
-                    return y if bias is None else (y.float() + bias.to(dt).float()).to(dt)
-
-                plain_dense = tail_mod.dense
-                tail_mod.dense = dense_tc
-                try:
-                    d = (decoder_tail_plain(lat, pts, q, ids, tabs).float() - ref.float()).abs()
-                finally:
-                    tail_mod.dense = plain_dense
-                scale = max(1.0, float(ref.float().abs().max()))
-                print(f"# K3 control: plain version with bf16 tensor-core products vs plain "
-                      f"version: max_abs_err/scale {float(d.max()) / scale:.3e}, "
-                      f"mean_abs_err/scale {float(d.mean()) / scale:.3e} (limits "
-                      f"{tol[0]:.1e}, {tol[1]:.1e})", flush=True)
-                del d
+                control("K3", tail_mod, lambda: decoder_tail_plain(lat, pts, q, ids, tabs),
+                        [ref], tol)
             del out, ref
 
             pt = pointnet_tables(net.point_net)
@@ -520,22 +543,37 @@ def main() -> int:
                     name="pointnet_trunk", route="cuda",
                     source="ppsurf_tpu_torch/csrc/pointnet.cu",
                     replaces="ppsurf_tpu/ops/pointnet_pallas.py:56",
-                    max_abs_err=err4, ms=cuda_ms(lambda: pointnet_trunk(pp, pt)),
+                    max_abs_err=err4, ms=cuda_ms(lambda: pointnet_trunk(pp, pt), reps=10),
                     plain_ms=cuda_ms(lambda: pointnet_trunk_plain(pp, pt), reps=2),
                     bound_ms=b4, bound_by=by4, library_ms=None,
                     shape=f"C={c} P=50 bf16",
                 )
+                w0a, w0b, ws1, ws2, ws3 = pt.trunk_w
+                x3, x64 = pp.reshape(-1, 3), b_p.reshape(-1, 64)
+                x128 = torch.matmul(x64, ws2)
+                yardstick("K4", "conv0a, conv0b, stn conv1-3",
+                          [(x3, w0a), (x64, w0b), (x64, ws1), (x64, ws2), (x128, ws3)])
+                del x3, x64, x128
+                control("K4", pn_mod, lambda: pointnet_trunk_plain(pp, pt), [b_p, pool_p], tol)
                 ops5 = c * 50 * (64 * 64 + 64 * 128 + 128 * 256 + 256 + 256 * 256) * 2.0
                 b5, by5 = bound_ms(c * 50 * 64 * 2 + c * 256 * 2, ops5, tag)
                 results["pointnet_head"] = dict(
                     name="pointnet_head", route="cuda",
                     source="ppsurf_tpu_torch/csrc/pointnet.cu",
                     replaces="ppsurf_tpu/ops/pointnet_pallas.py:72",
-                    max_abs_err=err5, ms=cuda_ms(lambda: pointnet_head(x2, pt)),
+                    max_abs_err=err5, ms=cuda_ms(lambda: pointnet_head(x2, pt), reps=10),
                     plain_ms=cuda_ms(lambda: pointnet_head_plain(x2, pt), reps=2),
                     bound_ms=b5, bound_by=by5, library_ms=None,
                     shape=f"C={c} P=50 bf16",
                 )
+                wc1, wc2, wc3, wq, wv = pt.head_w
+                x64 = x2.reshape(-1, 64)
+                x128 = torch.matmul(x64, wc2)
+                x256 = torch.matmul(x128, wc3)
+                yardstick("K5", "conv1-3, fc_query, fc_value",
+                          [(x64, wc1), (x64, wc2), (x128, wc3), (x256, wq), (x256, wv)])
+                del x64, x128, x256
+                control("K5", pn_mod, lambda: pointnet_head_plain(x2, pt), [h_p], tol)
             del pp, b_k, pool_k, b_p, pool_p, x2, h_k, h_p
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -595,8 +633,8 @@ def main() -> int:
           f"refine {args.refine}: {total:.2f} s; phases "
           + " ".join(f"{k}={v:.2f}s" for k, v in timings.items()))
     print(f"# e2e field queries {queries}, mesh {mesh.vertices.shape[0]} vertices "
-          f"{mesh.faces.shape[0]} faces (with the CUDA-core K1 and K3: 323687 vertices 647036 "
-          f"faces at res 257); launches {json.dumps(launches)}", flush=True)
+          f"{mesh.faces.shape[0]} faces (with K4 and K5 on the CUDA cores: 323677 vertices "
+          f"647018 faces at res 257); launches {json.dumps(launches)}", flush=True)
     for name, res in results.items():
         res["launches"] = launches[name]
     n_ref, iters = refine_in["v"].shape[0], refine_in["iters"]

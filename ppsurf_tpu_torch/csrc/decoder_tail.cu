@@ -201,56 +201,17 @@ __device__ __forceinline__ float dense_out(float acc, float b) {
   return rnd<bf16>(rnd<bf16>(acc) + b);
 }
 
-struct Ring {
-  unsigned char* slots;
-  uint64_t* full;
-  uint64_t* empty;
-  int stage = 0;
-  uint32_t phase = 0;
-
-  __device__ __forceinline__ uint32_t wait() {
-    gm::mbar_wait(&full[stage], phase);
-    return gm::smem_u32(slots + stage * SLICE);
-  }
-  __device__ __forceinline__ void release() {
-    gm::mbar_arrive(&empty[stage]);
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// total = sum over four 64-deep K-tiles of a fresh tensor-core partial,
-// added on the CUDA cores in f32 (round to nearest). Tensor-core
-// accumulation over all of K=256 (bf16 torch.matmul, the smoke's K3
-// control) reads about twice as far from the plain version's f32 products
-// (PERF.md, Findings).
-template <int N>
-__device__ __forceinline__ void add_partial(float (&total)[N / 2], float (&part)[N / 2],
-                                            int tile) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) total[i] = tile ? total[i] + part[i] : part[i];
-}
+using Ring = gm::Ring<STAGES, SLICE>;
 
 // total (64 x 128) = act (64 x 256) @ W[:, half]: four 16 KB slices, one
-// K-tile of the half's 128 columns each
+// K-tile of the half's 128 columns each, their partials added in f32
 __device__ __forceinline__ void mma_half(float (&total)[64], uint32_t act, Ring& ring) {
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    const uint32_t w = ring.wait();
     float part[64];
-    gm::fence_operand(part);
-    gm::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      gm::wgmma_m64n128k16(part, gm::desc_sw128(act + s * 8192 + kk * 32),
-                           gm::desc_sw128(w + kk * 32), kk);
-    gm::wgmma_commit();
-    gm::wgmma_wait<0>();
-    gm::fence_operand(part);
+    gm::mma_ktile<128>(part, act + s * 8192, ring.wait());
     ring.release();
-    add_partial<128>(total, part, s);
+    gm::add_partial(total, part, s);
   }
 }
 
@@ -262,16 +223,8 @@ __device__ __forceinline__ void mma_query(float (&total)[32], uint32_t act, Ring
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       float part[32];
-      gm::fence_operand(part);
-      gm::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        gm::wgmma_m64n64k16(part, gm::desc_sw128(act + (2 * s + t) * 8192 + kk * 32),
-                            gm::desc_sw128(w + t * 8192 + kk * 32), kk);
-      gm::wgmma_commit();
-      gm::wgmma_wait<0>();
-      gm::fence_operand(part);
-      add_partial<64>(total, part, 2 * s + t);
+      gm::mma_ktile<64>(part, act + (2 * s + t) * 8192, w + t * 8192);
+      gm::add_partial(total, part, 2 * s + t);
     }
     ring.release();
   }
@@ -290,20 +243,12 @@ decoder_tail_wgmma_kernel(const bf16* __restrict__ latents,
                           const unsigned char* __restrict__ wpack,
                           bf16* __restrict__ out, int c) {
   extern __shared__ unsigned char smem_raw[];
-  // 1024-byte alignment of the swizzled operands
-  unsigned char* smem = smem_raw + ((1024 - (gm::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* slots = smem;
+  unsigned char* slots = gm::align1024(smem_raw);
   unsigned char* acts = slots + STAGES * SLICE;
   float* floats = reinterpret_cast<float*>(acts + CONSUMERS * 2 * ACT_BYTES);
   uint64_t* bars = reinterpret_cast<uint64_t*>(floats + CONSUMERS * SMALL_FLOATS);
   Ring ring{slots, bars, bars + STAGES};
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES; ++i) {
-      gm::mbar_init(&ring.full[i], 1);
-      gm::mbar_init(&ring.empty[i], CONSUMERS * WG_THREADS);
-    }
-    gm::mbar_fence_init();
-  }
+  if (threadIdx.x == 0) ring.init(CONSUMERS * WG_THREADS);
   __syncthreads();
   const int pairs = (c + CONSUMERS - 1) / CONSUMERS;
   const int wg = threadIdx.x / WG_THREADS;
@@ -311,18 +256,8 @@ decoder_tail_wgmma_kernel(const bf16* __restrict__ latents,
   if (wg == CONSUMERS) {
     // producer: the same 26 slices for every pair of queries
     if (threadIdx.x % 32 == 0) {
-      for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
-        for (int i = 0; i < SLICES; ++i) {
-          gm::mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
-          gm::mbar_arrive_expect_tx(&ring.full[ring.stage], SLICE);
-          gm::bulk_copy_g2s(slots + ring.stage * SLICE, wpack + i * SLICE, SLICE,
-                            &ring.full[ring.stage]);
-          if (++ring.stage == STAGES) {
-            ring.stage = 0;
-            ring.phase ^= 1;
-          }
-        }
-      }
+      for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x)
+        for (int i = 0; i < SLICES; ++i) ring.produce(wpack + i * SLICE, SLICE);
     }
     return;
   }

@@ -1,6 +1,8 @@
-// Hopper building blocks of the port's tensor-core kernels (sm_90a):
+// Hopper building blocks of the port's tensor-core kernels (sm_90a, K3-K5):
 // warpgroup matrix multiplies (`wgmma`) on bf16 operands in shared memory,
-// mbarriers, 1-D bulk copies (TMA without a tensor map) and named barriers.
+// one 64-deep K-tile at a time with f32 partial sums, mbarriers, 1-D bulk
+// copies (TMA without a tensor map), a producer/consumer ring of weight
+// slices and named barriers.
 //
 // Shared-memory operand layout (the one `wgmma` reads with 128-byte
 // swizzling, K-major): a (rows x 64) bf16 tile stores row r's 128 bytes at
@@ -22,6 +24,12 @@ namespace gmma {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte-aligned address at or after p in shared memory, where
+// the swizzled operands start (dynamic shared memory is less aligned)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // byte offset of element (r, c) of a (rows x 256) bf16 K-major operand
@@ -60,6 +68,17 @@ template <int N>
 __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// all threads of a warpgroup set their register count (a multiple of 8):
+// a producer warpgroup gives registers up so its consumers can take more
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // generic-proxy shared-memory writes -> visible to wgmma / bulk copies
@@ -165,6 +184,83 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
       "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
+
+// D (64 x N, f32, fragment layout above) = A (64 x 64) B (64 x N) over one
+// 64-deep K-tile: A and B are swizzled K-major tiles at shared addresses a
+// and b (B: N rows of 128 bytes). Overwrites d and waits for the result.
+template <int N>
+__device__ __forceinline__ void mma_ktile(float (&d)[N / 2], uint32_t a, uint32_t b) {
+  static_assert(N == 64 || N == 128, "m64n64k16 or m64n128k16");
+  fence_operand(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (N == 128)
+      wgmma_m64n128k16(d, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32), kk);
+    else
+      wgmma_m64n64k16(d, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32), kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(d);
+}
+
+// total = sum over 64-deep K-tiles of a fresh tensor-core partial, added
+// on the CUDA cores in f32 (round to nearest): `tile` 0 starts the sum.
+// Tensor-core accumulation over all of K=256 (bf16 torch.matmul, the
+// smoke's K3 control) reads about twice as far from the plain versions'
+// f32 products (PERF.md, Findings).
+template <int M>
+__device__ __forceinline__ void add_partial(float (&total)[M], const float (&part)[M],
+                                            int tile) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) total[i] = tile ? total[i] + part[i] : part[i];
+}
+
+// A ring of STAGES shared-memory slots of SLICE bytes that one producer
+// thread fills with bulk copies and the consumer warpgroups read in the
+// same order. Every consumer thread waits for a slot and releases it (the
+// `empty` barriers count all of them); producer and consumers each keep
+// their own copy of the position.
+template <int STAGES, int SLICE>
+struct Ring {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage = 0;
+  uint32_t phase = 0;
+
+  // one thread, before the ring is used
+  __device__ __forceinline__ void init(int consumer_threads) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], consumer_threads);
+    }
+    mbar_fence_init();
+  }
+  __device__ __forceinline__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  // producer: wait until the next slot is free, then copy `bytes` into it
+  __device__ __forceinline__ void produce(const void* src, uint32_t bytes) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    mbar_arrive_expect_tx(&full[stage], bytes);
+    bulk_copy_g2s(slots + stage * SLICE, src, bytes, &full[stage]);
+    advance();
+  }
+  // consumer: the shared address of the next filled slot
+  __device__ __forceinline__ uint32_t wait() {
+    mbar_wait(&full[stage], phase);
+    return smem_u32(slots + stage * SLICE);
+  }
+  __device__ __forceinline__ void release() {
+    mbar_arrive(&empty[stage]);
+    advance();
+  }
+};
 
 }  // namespace gmma
 }  // namespace ppsurf

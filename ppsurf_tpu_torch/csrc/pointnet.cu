@@ -8,11 +8,36 @@
 //   conv1 64 / conv2 128 (+BN+relu), conv3 256 (+BN), then attention
 //   pooling: a scalar fc_query logit per point, softmax over the P real
 //   points, fc_value (256) and the weighted sum in f32.
-// Design and bounds: see ppsurf_tpu_torch/ops/pointnet_att.py. One block of
-// 256 threads handles one patch; its P <= 64 points are the rows of every
-// product and stay in shared memory across all layers. Rows past P repeat
+// Design and bounds: see ppsurf_tpu_torch/ops/pointnet_att.py. A patch's
+// P <= 64 points are the 64 rows of every product; rows past P repeat
 // point 0: they never change a max and are masked out of the softmax.
+//
+// bf16 (`trunk_wgmma_kernel`, `head_wgmma_kernel`): one patch is one
+// `wgmma` m64 tile, and each consumer warpgroup owns whole patches, so the
+// max and the softmax over a patch's rows stay inside it. Every product
+// but conv0a (K=3, on the CUDA cores) runs on the tensor cores, one
+// 64-deep K-tile at a time with the partials added in f32; each epilogue
+// rounds where the plain version rounds and writes the next product's
+// swizzled bf16 operand to shared memory; rounding takes column pairs, one
+// conversion each. Persistent blocks, one per SM:
+//   K4 keeps its 96 KB of weights resident (loaded once per block with
+//      bulk copies); three warpgroups work through patches independently;
+//      stn conv3's output only feeds the max, taken from the accumulator
+//      fragments.
+//   K5 streams its 216 KB of weights through a ring of four 16 KB slices:
+//      a producer warpgroup (one thread copies; the warpgroup gives its
+//      registers to the others with setmaxnreg, so no accumulator spills)
+//      and two consumer warpgroups, one patch each, so a slice serves two
+//      patches. fc_query is a dot product on the CUDA cores in conv3's
+//      epilogue; fc_value's epilogue weights each rounded value by the
+//      softmax and sums the rows in f32 from the fragments.
+//
+// f32 (`trunk_kernel<float>`, `head_kernel<float>`): one block of 256
+// threads a patch, every product as f32 FMA on the CUDA cores. It stays
+// there: TF32 tensor cores keep 10 mantissa bits and would miss the f32
+// limit (1e-4 x scale) that the f32 field is held to.
 #include "common.cuh"
+#include "gmma.cuh"
 
 namespace {
 
@@ -155,6 +180,436 @@ head_kernel(const T* __restrict__ x2, const T* __restrict__ wc1,
   out[c * W + tid] = Num<T>::from_f(s);
 }
 
+// ---- bf16 on the tensor cores ----
+namespace gm = ppsurf::gmma;
+using bf16 = __nv_bfloat16;
+
+constexpr int WG_THREADS = 128;
+constexpr int TILE = 8192;  // bytes of one swizzled (64 x 64) bf16 operand tile
+constexpr unsigned FULL = 0xffffffffu;
+
+// K4: weights w0b, ws1 (one tile each), ws2 (128 x 64: two tiles) and ws3
+// (column half h, K-tile k at slot 2h + k, two tiles each), in that order
+constexpr int TRUNK_PACK = 12 * TILE;
+constexpr int TRUNK_WGS = 3;         // warpgroups, one patch each at a time
+constexpr int TRUNK_ACT = 3 * TILE;  // a warpgroup's operands: a (1 tile), b (2)
+constexpr size_t TRUNK_SMEM = 1024  // alignment slack
+    + TRUNK_PACK + TRUNK_WGS * (TRUNK_ACT + 4 * W * sizeof(float)) + sizeof(uint64_t);
+
+// K5: 14 weight slices in the order they are multiplied: conv1 (64 x 64,
+// 8 KB), conv2 (128 x 64), conv3 (half h, K-tile k: slice 2 + 2h + k),
+// fc_value (half h, K-tile k: slice 6 + 4h + k); 16 KB each but the first
+constexpr int STAGES = 4;
+constexpr int SLICE = 2 * TILE;
+constexpr int HEAD_SLICES = 14;
+constexpr int HEAD_WGS = 2;          // consumer warpgroups, one patch each
+constexpr int HEAD_THREADS = (HEAD_WGS + 1) * WG_THREADS;  // + producer warpgroup
+// registers a thread: the producer gives up all but 40 so that each
+// consumer thread can hold 232 (two 64-float accumulators and more)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert(PRODUCER_REGS * WG_THREADS + CONSUMER_REGS * HEAD_WGS * WG_THREADS <= 65536,
+              "the register file of an SM");
+constexpr int HEAD_ACT = 6 * TILE;   // a warpgroup's operands: x (2 tiles), y (4)
+constexpr int HEAD_FLOATS = 64 + 4 * W;  // logits, per-warp column sums
+constexpr size_t HEAD_SMEM = 1024  // alignment slack
+    + STAGES * SLICE + HEAD_WGS * (HEAD_ACT + HEAD_FLOATS * sizeof(float))
+    + 2 * STAGES * sizeof(uint64_t);
+
+using Ring = gm::Ring<STAGES, SLICE>;
+
+// a pair of values rounded to bf16 with one conversion
+__device__ __forceinline__ float2 rnd2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
+__device__ __forceinline__ float2 ld2(const float* __restrict__ p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 ld2(const bf16* __restrict__ p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// dense + eval BN (`pointnet_pallas.py:41-53`) of the accumulators of
+// columns col, col + 1 (col even): the product rounds to bf16, then its
+// sum with the bias; the f32 affine (unfused, as the plain version
+// computes it) rounds again. `aff` holds the layer's three rows.
+__device__ __forceinline__ float2 bn_out(float acc0, float acc1, const float* __restrict__ aff,
+                                         int col) {
+  const float2 b = ld2(aff + col), g = ld2(aff + W + col), c = ld2(aff + 2 * W + col);
+  float2 y = rnd2(acc0, acc1);
+  y = rnd2(y.x + b.x, y.y + b.y);
+  return rnd2(__fadd_rn(__fmul_rn(y.x, g.x), c.x), __fadd_rn(__fmul_rn(y.y, g.y), c.y));
+}
+
+// fc_value's dense epilogue of columns col, col + 1: the product rounds
+// to bf16, then its sum with the bias
+__device__ __forceinline__ float2 value_out(float acc0, float acc1, float2 b) {
+  const float2 v = rnd2(acc0, acc1);
+  return rnd2(v.x + b.x, v.y + b.y);
+}
+
+__device__ __forceinline__ float2 relu2(float2 y) {
+  return make_float2(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f));
+}
+
+// relu(bn_out(acc)) of a (64 x N) accumulator into columns col0.. of the
+// swizzled 64-row operand at dst; r0, cl: this thread's fragment row and
+// column offset (`gmma.cuh`)
+template <int N>
+__device__ __forceinline__ void store_bn_relu(const float (&acc)[N / 2],
+                                              const float* __restrict__ aff,
+                                              unsigned char* dst, int col0, int r0, int cl) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = col0 + 8 * j + cl;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 y = relu2(bn_out(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], aff, col));
+      *reinterpret_cast<__nv_bfloat162*>(dst + gm::swizzle_offset(r0 + 8 * h, col, 64)) =
+          __float22bfloat162_rn(y);
+    }
+  }
+}
+
+// `op` of a pair of column values over the 8 lanes that hold the same
+// columns (lane bits 2-4), by shuffles
+template <typename Op>
+__device__ __forceinline__ float2 lane_reduce(float2 v, Op op) {
+#pragma unroll
+  for (int off = 4; off <= 16; off <<= 1) {
+    v.x = op(v.x, __shfl_xor_sync(FULL, v.x, off));
+    v.y = op(v.y, __shfl_xor_sync(FULL, v.y, off));
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(TRUNK_WGS * WG_THREADS, 1)
+trunk_wgmma_kernel(const bf16* __restrict__ patches, const bf16* __restrict__ w0a,
+                   const float* __restrict__ aff, const unsigned char* __restrict__ pack,
+                   bf16* __restrict__ b_out, bf16* __restrict__ pooled, int c, int p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* wts = gm::align1024(smem_raw);
+  unsigned char* acts = wts + TRUNK_PACK;
+  float* floats = reinterpret_cast<float*>(acts + TRUNK_WGS * TRUNK_ACT);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(floats + TRUNK_WGS * 4 * W);
+  if (threadIdx.x == 0) {
+    gm::mbar_init(bar, 1);
+    gm::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    gm::mbar_arrive_expect_tx(bar, TRUNK_PACK);
+    for (int i = 0; i < TRUNK_PACK / SLICE; ++i)
+      gm::bulk_copy_g2s(wts + i * SLICE, pack + i * SLICE, SLICE, bar);
+  }
+
+  // warpgroup `wg`: thread t, warp w, lane l; its patches are wg, wg +
+  // TRUNK_WGS, ... of this block's share
+  const int wg = threadIdx.x / WG_THREADS;
+  const int t = threadIdx.x % WG_THREADS;
+  const int w = t >> 5;
+  const int l = t & 31;
+  unsigned char* act_a = acts + wg * TRUNK_ACT;
+  unsigned char* act_b = act_a + TILE;
+  const uint32_t a_addr = gm::smem_u32(act_a);
+  const uint32_t b_addr = gm::smem_u32(act_b);
+  const uint32_t w_addr = gm::smem_u32(wts);
+  float* colmax = floats + wg * 4 * W;  // per-warp column maxima
+  auto sync = [wg] { gm::named_barrier(1 + wg, WG_THREADS); };
+  const int r0 = 16 * w + (l >> 2);  // accumulator rows r0 and r0 + 8
+  const int cl = 2 * (l & 3);        // accumulator column offset in an n8 block
+  const int r = t >> 1;              // conv0a: thread t computes 32 columns of row t / 2
+  const int step = gridDim.x * TRUNK_WGS;
+
+  // row r's point of this warpgroup's next patch, loaded a patch ahead
+  int patch = blockIdx.x * TRUNK_WGS + wg;
+  bf16 next[3];
+  auto load_point = [&](int at) {
+    const bf16* src = patches + (static_cast<int64_t>(at) * p + (r < p ? r : 0)) * 3;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) next[d] = src[d];
+  };
+  if (patch < c) load_point(patch);
+  gm::mbar_wait(bar, 0);  // the weights are in
+
+#pragma unroll 1
+  for (; patch < c; patch += step) {
+    // conv0a (K=3) on the CUDA cores, f32 FMA in the plain product's order
+    {
+      const float x0 = __bfloat162float(next[0]);
+      const float x1 = __bfloat162float(next[1]);
+      const float x2 = __bfloat162float(next[2]);
+      if (patch + step < c) load_point(patch + step);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int col0 = 32 * (t & 1) + 8 * u;
+        uint4 packed;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = col0 + 2 * e;
+          const float2 wa = ld2(w0a + col), wb = ld2(w0a + 64 + col), wc = ld2(w0a + 128 + col);
+          const float acc0 = fmaf(x2, wc.x, fmaf(x1, wb.x, fmaf(x0, wa.x, 0.f)));
+          const float acc1 = fmaf(x2, wc.y, fmaf(x1, wb.y, fmaf(x0, wa.y, 0.f)));
+          h[e] = __float22bfloat162_rn(relu2(bn_out(acc0, acc1, aff, col)));
+        }
+        *reinterpret_cast<uint4*>(act_a + gm::swizzle_offset(r, col0, 64)) = packed;
+      }
+    }
+    gm::fence_proxy_async();
+    sync();
+
+    // conv0b 64 -> 64 (a -> b), then b's rows < p to global memory
+    {
+      float acc[32];
+      gm::mma_ktile<64>(acc, a_addr, w_addr);
+      store_bn_relu<64>(acc, aff + 3 * W, act_b, 0, r0, cl);
+    }
+    gm::fence_proxy_async();
+    sync();
+    uint4* dst = reinterpret_cast<uint4*>(b_out + static_cast<int64_t>(patch) * p * 64);
+    for (int i = t; i < p * 8; i += WG_THREADS)
+      dst[i] = *reinterpret_cast<const uint4*>(act_b + gm::swizzle_offset(i >> 3, 8 * (i & 7), 64));
+
+    // stn conv1 64 -> 64 (b -> a), conv2 64 -> 128 (a -> b)
+    {
+      float acc[32];
+      gm::mma_ktile<64>(acc, b_addr, w_addr + TILE);
+      store_bn_relu<64>(acc, aff + 6 * W, act_a, 0, r0, cl);
+    }
+    gm::fence_proxy_async();
+    sync();
+    {
+      float acc[64];
+      gm::mma_ktile<128>(acc, a_addr, w_addr + 2 * TILE);
+      store_bn_relu<128>(acc, aff + 9 * W, act_b, 0, r0, cl);
+    }
+    gm::fence_proxy_async();
+    sync();
+
+    // stn conv3 128 -> 256 (b), +BN+relu, and the max over the 64 rows
+    // (rows >= p repeat row 0) straight from the fragments
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float total[64];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float part[64];
+        gm::mma_ktile<128>(part, b_addr + k * TILE, w_addr + (4 + 2 * (2 * half + k)) * TILE);
+        gm::add_partial(total, part, k);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * half + 8 * j + cl;
+        const float2 y0 = relu2(bn_out(total[4 * j], total[4 * j + 1], aff + 12 * W, col));
+        const float2 y1 = relu2(bn_out(total[4 * j + 2], total[4 * j + 3], aff + 12 * W, col));
+        const float2 m = lane_reduce(make_float2(fmaxf(y0.x, y1.x), fmaxf(y0.y, y1.y)),
+                                     [](float a, float b) { return fmaxf(a, b); });
+        if (l < 4) *reinterpret_cast<float2*>(colmax + w * W + col) = m;
+      }
+    }
+    sync();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = t + WG_THREADS * h;
+      const float m = fmaxf(fmaxf(colmax[col], colmax[W + col]),
+                            fmaxf(colmax[2 * W + col], colmax[3 * W + col]));
+      pooled[static_cast<int64_t>(patch) * W + col] = __float2bfloat16_rn(m);
+    }
+    sync();
+  }
+}
+
+__global__ void __launch_bounds__(HEAD_THREADS, 1)
+head_wgmma_kernel(const bf16* __restrict__ x2, const bf16* __restrict__ wq,
+                  const float* __restrict__ aff, const float* __restrict__ bqv,
+                  const unsigned char* __restrict__ pack, bf16* __restrict__ out,
+                  int c, int p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* slots = gm::align1024(smem_raw);
+  unsigned char* acts = slots + STAGES * SLICE;
+  float* floats = reinterpret_cast<float*>(acts + HEAD_WGS * HEAD_ACT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(floats + HEAD_WGS * HEAD_FLOATS);
+  Ring ring{slots, bars, bars + STAGES};
+  if (threadIdx.x == 0) ring.init(HEAD_WGS * WG_THREADS);
+  __syncthreads();
+  const int rounds = (c + HEAD_WGS - 1) / HEAD_WGS;
+  const int wg = threadIdx.x / WG_THREADS;
+
+  if (wg == HEAD_WGS) {
+    // producer: one thread copies the same 14 slices for every round of
+    // HEAD_WGS patches
+    gm::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == HEAD_WGS * WG_THREADS) {
+      for (int round = blockIdx.x; round < rounds; round += gridDim.x) {
+        ring.produce(pack, TILE);
+        for (int i = 1; i < HEAD_SLICES; ++i) ring.produce(pack + TILE + (i - 1) * SLICE, SLICE);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup `wg`: thread t, warp w, lane l. Its operands: x2
+  // and then conv2's output in act_x, conv1's and then conv3's in act_y.
+  gm::setmaxnreg_inc<CONSUMER_REGS>();
+  const int t = threadIdx.x % WG_THREADS;
+  const int w = t >> 5;
+  const int l = t & 31;
+  unsigned char* act_x = acts + wg * HEAD_ACT;
+  unsigned char* act_y = act_x + 2 * TILE;
+  const uint32_t x_addr = gm::smem_u32(act_x);
+  const uint32_t y_addr = gm::smem_u32(act_y);
+  float* logits = floats + wg * HEAD_FLOATS;
+  float* colsum = logits + 64;  // per-warp column sums
+  auto sync = [wg] { gm::named_barrier(1 + wg, WG_THREADS); };
+  const int r0 = 16 * w + (l >> 2);  // accumulator rows r0 and r0 + 8
+  const int cl = 2 * (l & 3);        // accumulator column offset in an n8 block
+  const float bq = bqv[0];
+
+#pragma unroll 1
+  for (int round = blockIdx.x; round < rounds; round += gridDim.x) {
+    // the second patch of an odd last round repeats the last one, unstored
+    const int patch = min(HEAD_WGS * round + wg, c - 1);
+    const bool store = HEAD_WGS * round + wg < c;
+
+    // x2's rows, rows >= p repeating row 0, into act_x
+    for (int i = t; i < 64 * 8; i += WG_THREADS) {
+      const int r = i >> 3;
+      const int64_t row = static_cast<int64_t>(patch) * p + (r < p ? r : 0);
+      *reinterpret_cast<uint4*>(act_x + gm::swizzle_offset(r, 8 * (i & 7), 64)) =
+          *reinterpret_cast<const uint4*>(x2 + row * 64 + 8 * (i & 7));
+    }
+    gm::fence_proxy_async();
+    sync();
+
+    // conv1 64 -> 64 (x -> y), conv2 64 -> 128 (y -> x), +BN+relu
+    {
+      float acc[32];
+      gm::mma_ktile<64>(acc, x_addr, ring.wait());
+      ring.release();
+      store_bn_relu<64>(acc, aff, act_y, 0, r0, cl);
+    }
+    gm::fence_proxy_async();
+    sync();
+    {
+      float acc[64];
+      gm::mma_ktile<128>(acc, y_addr, ring.wait());
+      ring.release();
+      store_bn_relu<128>(acc, aff + 3 * W, act_x, 0, r0, cl);
+    }
+    gm::fence_proxy_async();
+    sync();
+
+    // conv3 128 -> 256 (x -> y), +BN; fc_query's dot product of rows r0
+    // and r0 + 8 over this thread's columns of conv3's bf16 output
+    float q0 = 0.f, q1 = 0.f;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float total[64];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float part[64];
+        gm::mma_ktile<128>(part, x_addr + k * TILE, ring.wait());
+        ring.release();
+        gm::add_partial(total, part, k);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * half + 8 * j + cl;
+        const float2 wqc = ld2(wq + col);
+        const float2 y0 = bn_out(total[4 * j], total[4 * j + 1], aff + 6 * W, col);
+        const float2 y1 = bn_out(total[4 * j + 2], total[4 * j + 3], aff + 6 * W, col);
+        q0 = fmaf(y0.y, wqc.y, fmaf(y0.x, wqc.x, q0));
+        q1 = fmaf(y1.y, wqc.y, fmaf(y1.x, wqc.x, q1));
+        *reinterpret_cast<__nv_bfloat162*>(act_y + gm::swizzle_offset(r0, col, 64)) =
+            __float22bfloat162_rn(y0);
+        *reinterpret_cast<__nv_bfloat162*>(act_y + gm::swizzle_offset(r0 + 8, col, 64)) =
+            __float22bfloat162_rn(y1);
+      }
+    }
+    // the four lanes l % 4 of a row hold all its columns
+    q0 += __shfl_xor_sync(FULL, q0, 1);
+    q0 += __shfl_xor_sync(FULL, q0, 2);
+    q1 += __shfl_xor_sync(FULL, q1, 1);
+    q1 += __shfl_xor_sync(FULL, q1, 2);
+    if ((l & 3) == 0) {
+      logits[r0] = rnd<bf16>(rnd<bf16>(q0) + bq);
+      logits[r0 + 8] = rnd<bf16>(rnd<bf16>(q1) + bq);
+    }
+    gm::fence_proxy_async();
+    sync();
+
+    // softmax over the p real rows, in every warp: lane l holds rows l and
+    // l + 32; every step rounds to bf16, the sum accumulates in f32
+    float a0, a1;  // the weights of rows r0 and r0 + 8
+    {
+      const float ninf = -__int_as_float(0x7f800000);
+      const float la = l < p ? logits[l] : ninf;
+      const float lb = l + 32 < p ? logits[l + 32] : ninf;
+      float m = fmaxf(la, lb);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+      const float ea = l < p ? rnd<bf16>(expf(rnd<bf16>(la - m))) : 0.f;
+      const float eb = l + 32 < p ? rnd<bf16>(expf(rnd<bf16>(lb - m))) : 0.f;
+      float s = ea + eb;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+      s = rnd<bf16>(s);
+      // warps 0-1 hold rows 0-31 (each lane's first row), warps 2-3 rows 32-63
+      const float e = w < 2 ? ea : eb;
+      const float att = rnd<bf16>(e / s);
+      a0 = __shfl_sync(FULL, att, r0 & 31);
+      a1 = __shfl_sync(FULL, att, (r0 + 8) & 31);
+    }
+
+    // fc_value 256 -> 256 (y), each rounded value weighted by its row's
+    // softmax weight and summed over the rows in f32: over rows r0, r0 + 8,
+    // then the 8 lanes of a column, then the 4 warps
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float total[64];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float part[64];
+        gm::mma_ktile<128>(part, y_addr + k * TILE, ring.wait());
+        ring.release();
+        gm::add_partial(total, part, k);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * half + 8 * j + cl;
+        const float2 b = ld2(bqv + W + col);
+        const float2 y0 = value_out(total[4 * j], total[4 * j + 1], b);
+        const float2 y1 = value_out(total[4 * j + 2], total[4 * j + 3], b);
+        const float2 sum = lane_reduce(
+            make_float2(__fadd_rn(__fmul_rn(a0, y0.x), __fmul_rn(a1, y1.x)),
+                        __fadd_rn(__fmul_rn(a0, y0.y), __fmul_rn(a1, y1.y))),
+            [](float a, float b) { return a + b; });
+        if (l < 4) *reinterpret_cast<float2*>(colsum + w * W + col) = sum;
+      }
+    }
+    sync();
+    if (store) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = t + WG_THREADS * h;
+        const float s = colsum[col] + colsum[W + col] + colsum[2 * W + col] + colsum[3 * W + col];
+        out[static_cast<int64_t>(patch) * W + col] = __float2bfloat16_rn(s);
+      }
+    }
+    sync();
+  }
+}
+
+cudaError_t sm_count(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
 template <typename T>
 cudaError_t launch_trunk(const void* patches, const void* w0a, const void* w0b,
                          const void* ws1, const void* ws2, const void* ws3,
@@ -193,20 +648,53 @@ cudaError_t launch_head(const void* x2, const void* wc1, const void* wc2,
   return cudaGetLastError();
 }
 
+cudaError_t launch_trunk_bf16(const void* patches, const void* w0a, const void* aff,
+                              const void* pack, void* b_out, void* pooled, int c, int p,
+                              cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      trunk_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(TRUNK_SMEM));
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const int blocks = min((c + TRUNK_WGS - 1) / TRUNK_WGS, sms);
+  trunk_wgmma_kernel<<<blocks, TRUNK_WGS * WG_THREADS, TRUNK_SMEM, stream>>>(
+      static_cast<const bf16*>(patches), static_cast<const bf16*>(w0a),
+      static_cast<const float*>(aff), static_cast<const unsigned char*>(pack),
+      static_cast<bf16*>(b_out), static_cast<bf16*>(pooled), c, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_head_bf16(const void* x2, const void* wq, const void* aff,
+                             const void* bqv, const void* pack, void* out, int c, int p,
+                             cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      head_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(HEAD_SMEM));
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const int blocks = min((c + HEAD_WGS - 1) / HEAD_WGS, sms);
+  head_wgmma_kernel<<<blocks, HEAD_THREADS, HEAD_SMEM, stream>>>(
+      static_cast<const bf16*>(x2), static_cast<const bf16*>(wq),
+      static_cast<const float*>(aff), static_cast<const float*>(bqv),
+      static_cast<const unsigned char*>(pack), static_cast<bf16*>(out), c, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ppsurf_pointnet_trunk(const void* patches, const void* w0a,
                                      const void* w0b, const void* ws1,
                                      const void* ws2, const void* ws3,
-                                     const void* aff, void* b_out,
-                                     void* pooled, int c, int p, int is_bf16,
-                                     void* stream) {
-  if (p < 1 || p > ROWS || c < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                     const void* aff, const void* pack,
+                                     void* b_out, void* pooled, int c, int p,
+                                     int is_bf16, void* stream) {
+  if (p < 1 || p > ROWS || c < 0 || (is_bf16 && !pack))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_trunk<__nv_bfloat16>(patches, w0a, w0b, ws1, ws2, ws3, aff,
-                                       b_out, pooled, c, p, s);
+  if (is_bf16) return launch_trunk_bf16(patches, w0a, aff, pack, b_out, pooled, c, p, s);
   return launch_trunk<float>(patches, w0a, w0b, ws1, ws2, ws3, aff, b_out,
                              pooled, c, p, s);
 }
@@ -215,13 +703,12 @@ extern "C" int ppsurf_pointnet_head(const void* x2, const void* wc1,
                                     const void* wc2, const void* wc3,
                                     const void* wq, const void* wv,
                                     const void* aff, const void* bqv,
-                                    void* out, int c, int p, int is_bf16,
-                                    void* stream) {
-  if (p < 1 || p > ROWS || c < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                    const void* pack, void* out, int c, int p,
+                                    int is_bf16, void* stream) {
+  if (p < 1 || p > ROWS || c < 0 || (is_bf16 && !pack))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_head<__nv_bfloat16>(x2, wc1, wc2, wc3, wq, wv, aff, bqv, out,
-                                      c, p, s);
+  if (is_bf16) return launch_head_bf16(x2, wq, aff, bqv, pack, out, c, p, s);
   return launch_head<float>(x2, wc1, wc2, wc3, wq, wv, aff, bqv, out, c, p, s);
 }

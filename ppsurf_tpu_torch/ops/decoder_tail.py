@@ -56,6 +56,7 @@ import torch
 
 from ppsurf_tpu_torch.models.norm import dense, softmax
 from ppsurf_tpu_torch.ops import kernels
+from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, weight_tile
 
 
 @dataclasses.dataclass
@@ -81,38 +82,17 @@ class DecoderTables:
         return self.wq.shape[1]
 
 
-def swizzle_tile(wt: torch.Tensor) -> torch.Tensor:
-    """A (rows, 64) bf16 K-major tile in the 128-byte-swizzled layout that
-    `wgmma` reads (`csrc/gmma.cuh`): row r's 16-byte unit u is stored at
-    unit u ^ (r % 8). Returns the (rows * 64,) image."""
-    rows = wt.shape[0]
-    units = wt.reshape(rows, 8, 8)
-    r = torch.arange(rows, device=wt.device)[:, None]
-    src = torch.arange(8, device=wt.device)[None, :] ^ (r % 8)
-    return units.gather(1, src[..., None].expand(rows, 8, 8)).reshape(-1)
-
-
-def unswizzle_tile(image: torch.Tensor, rows: int) -> torch.Tensor:
-    """Inverse of `swizzle_tile` (the swizzle is its own inverse)."""
-    return swizzle_tile(image.reshape(rows, 64)).reshape(rows, 64)
-
-
 def pack_wgmma_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
                        wv: torch.Tensor) -> torch.Tensor:
     """The bf16 kernel's weight stream: 26 slices of 16 KB, in the order it
-    multiplies. A weight (in=256, out) is stored transposed (K-major) in
-    tiles of 64 inputs. W2, W3 and Wv each give 8 slices, one (128 x 64)
-    tile each, for output columns 0-127 then 128-255, inputs 0-63 first;
-    Wq gives 2 slices of two (64 x 64) tiles (inputs 0-127, 128-255)."""
-    def tile(w, cols, k):
-        return swizzle_tile(w.t()[cols, 64 * k:64 * (k + 1)].contiguous())
-
-    def halves(w):
-        return [tile(w, slice(128 * h, 128 * (h + 1)), k) for h in range(2) for k in range(4)]
-
-    query = [torch.cat([tile(wq, slice(None), 2 * s + t) for t in range(2)])
+    multiplies, each a tile of `ops/wgmma_layout.py`. W2, W3 and Wv each
+    give 8 slices, one (128 x 64) tile each, for output columns 0-127 then
+    128-255, inputs 0-63 first; Wq gives 2 slices of two (64 x 64) tiles
+    (inputs 0-127, 128-255)."""
+    query = [torch.cat([weight_tile(wq, slice(None), 2 * s + t) for t in range(2)])
              for s in range(2)]
-    return torch.cat(halves(w2) + halves(w3) + query + halves(wv)).contiguous()
+    return torch.cat(column_halves(w2) + column_halves(w3) + query
+                     + column_halves(wv)).contiguous()
 
 
 def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:

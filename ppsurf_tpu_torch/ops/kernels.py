@@ -54,10 +54,11 @@ _SIGNATURES = {
     # latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv, bv,
     # wpack|NULL, out, c, k, latent, heads, is_bf16, stream
     "ppsurf_decoder_tail": [_P] * 15 + [_I] * 5 + [_P],
-    # patches, w0a, w0b, ws1, ws2, ws3, aff, b_out, pooled_out, c, p, is_bf16, stream
-    "ppsurf_pointnet_trunk": [_P] * 9 + [_I] * 3 + [_P],
-    # x2, wc1, wc2, wc3, wq, wv, aff, bqv, out, c, p, is_bf16, stream
-    "ppsurf_pointnet_head": [_P] * 9 + [_I] * 3 + [_P],
+    # patches, w0a, w0b, ws1, ws2, ws3, aff, pack|NULL, b_out, pooled_out, c, p,
+    # is_bf16, stream
+    "ppsurf_pointnet_trunk": [_P] * 10 + [_I] * 3 + [_P],
+    # x2, wc1, wc2, wc3, wq, wv, aff, bqv, pack|NULL, out, c, p, is_bf16, stream
+    "ppsurf_pointnet_head": [_P] * 10 + [_I] * 3 + [_P],
     # d2, out positions, c, kc, k, stream
     "ppsurf_topk_rows": [_P, _P, _I, _I, _I, _P],
     # cand, out, q, ncand, k, variant (index in EXTRACT_VARIANTS), stream

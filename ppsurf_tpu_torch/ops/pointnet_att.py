@@ -18,18 +18,43 @@ Eval BatchNorm is folded into (g, c) rows, and a dense output is rounded
 to the compute dtype BEFORE the f32 affine, as in
 `pointnet_pallas.py:25-29, 41-53`.
 
-The CUDA kernels (`csrc/pointnet.cu`) run one patch per block of 256
-threads: its P=50 points are the rows of every product and never leave
-shared memory between layers; the TPU's padding of P to 56 (a Mosaic
-tiling constraint) is gone, and rows 50..63 of the 64-row tile repeat
-point 0, which leaves the max unchanged and is masked out of the softmax.
+The CUDA kernels (`csrc/pointnet.cu`) take a patch's P=50 points as the
+64 rows of every product: rows 50..63 repeat point 0, which leaves the max
+unchanged and is masked out of the softmax (the TPU's padding of P to 56,
+a Mosaic tiling constraint, is gone).
 
 What bounds them on an H100: operations. Per patch K4 is about 4.9 MFLOP
 and K5 about 11.1 MFLOP, 0.25 and 0.56 TFLOP per 50 048-query chunk —
-0.25 ms and 0.56 ms at the bf16 tensor-core peak, while their bytes
-(patches, b, x2 and the outputs, 13 MB to 0.4 GB) take at most 0.13 ms.
-These first kernels multiply on the CUDA cores in f32 FMA and waste the
-14 padded rows of each tile, so they sit well above that bound.
+0.25 ms and 0.56 ms at the bf16 tensor-core peak of 989 TFLOP/s, while
+their bytes (patches, b, x2 and the outputs, 13 MB to 0.4 GB) take at
+most 0.13 ms. The 64-row tiles do 28% more work than the 50 real rows.
+
+- bf16 (the reconstruction's dtype): one patch is one `wgmma` m64 tile,
+  and each consumer warpgroup owns whole patches, so a patch's max and
+  softmax never leave it. Every product but conv0a (K=3, CUDA cores) is a
+  `wgmma` m64n64k16 / m64n128k16 product with f32 accumulators in
+  registers, one 64-deep K-tile at a time, the partials added in f32 on
+  the CUDA cores as in K3 (`ops/decoder_tail.py`); each epilogue rounds,
+  adds the bias, applies BN and relu as the plain version does and writes
+  the next layer's swizzled bf16 operand to shared memory. Persistent
+  blocks, one per SM. K4 keeps its 96 KB of weights (`trunk_pack`)
+  resident in shared memory and runs three warpgroups, each through its
+  own patches; b is copied out after conv0b, and stn conv3's output only
+  feeds the max, taken from the accumulator fragments. K5's weights are
+  216 KB (`head_pack`) and do not fit beside the activations: a producer
+  warpgroup streams them through a ring of four 16 KB slices with 1-D bulk
+  copies and mbarriers to two consumer warpgroups, one patch each, and
+  gives them its registers (`setmaxnreg`, 232 a consumer thread), so the
+  f32 accumulators never spill. A slice serves two patches: a patch costs
+  108 KB of L2 reads, 5.4 GB per 50 048-patch call. fc_query (256 -> 1) is
+  a dot product on the CUDA cores in conv3's epilogue; fc_value's
+  epilogue weights each rounded value by its row's softmax weight and
+  sums over the rows in f32 from the fragments, so its (64, 256) output
+  is never stored. PERF.md (Findings) records the designs that were
+  measured and dropped.
+- f32: one block of 256 threads a patch, each thread an 8 x 8 register
+  tile of every product on the CUDA cores (f32 FMA, 67 TFLOP/s peak).
+  TF32 tensor cores would miss the f32 limit the field is held to.
 """
 from __future__ import annotations
 
@@ -40,14 +65,21 @@ import torch
 
 from ppsurf_tpu_torch.models.norm import dense, softmax
 from ppsurf_tpu_torch.ops import kernels
+from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, weight_tile
 
 WIDTH = 256  # row width of the affine tables (widest layer)
+# (in, out) of conv0a, conv0b, stn conv1..3, then conv1..3, fc_query and
+# fc_value: the PPSurf widths the kernels are built for
+KERNEL_SHAPES = [(3, 64), (64, 64), (64, 64), (64, 128), (128, WIDTH),
+                 (64, 64), (64, 128), (128, WIDTH), (WIDTH, 1), (WIDTH, WIDTH)]
 
 
 @dataclasses.dataclass
 class PointNetTables:
     """Weights of the branch in the compute dtype; `*_aff` hold, per
-    layer, three f32 rows (dense bias rounded to dt, BN g, BN c)."""
+    layer, three f32 rows (dense bias rounded to dt, BN g, BN c); in bf16
+    at the PPSurf widths also `trunk_pack` and `head_pack`, the weights
+    of the tensor-core kernels in their operand layout."""
 
     dt: torch.dtype
     trunk_w: typing.Tuple[torch.Tensor, ...]  # conv0a, conv0b, stn conv1..3
@@ -56,6 +88,29 @@ class PointNetTables:
     head_w: typing.Tuple[torch.Tensor, ...]  # conv1..3, fc_query, fc_value
     head_aff: torch.Tensor  # (9, WIDTH)
     bqv: torch.Tensor  # (2, WIDTH): fc_query bias, fc_value bias
+    trunk_pack: typing.Optional[torch.Tensor] = None
+    head_pack: typing.Optional[torch.Tensor] = None
+
+
+def pack_trunk_weights(w0b: torch.Tensor, ws1: torch.Tensor, ws2: torch.Tensor,
+                       ws3: torch.Tensor) -> torch.Tensor:
+    """K4's 96 KB of resident weights, tiles of `ops/wgmma_layout.py`:
+    conv0b and stn conv1 (one (64 x 64) tile each), stn conv2 (one
+    (128 x 64) tile), then stn conv3's four (128 x 64) tiles, columns
+    0-127 over inputs 0-63 and 64-127, then columns 128-255."""
+    return torch.cat([weight_tile(w0b, slice(None), 0), weight_tile(ws1, slice(None), 0),
+                      weight_tile(ws2, slice(None), 0), *column_halves(ws3)]).contiguous()
+
+
+def pack_head_weights(wc1: torch.Tensor, wc2: torch.Tensor, wc3: torch.Tensor,
+                      wv: torch.Tensor) -> torch.Tensor:
+    """K5's weight stream, 216 KB: 14 slices in the order it multiplies,
+    conv1 (one (64 x 64) tile, 8 KB), conv2 (one (128 x 64) tile), conv3
+    (four (128 x 64) tiles: columns 0-127 over inputs 0-63 and 64-127,
+    then columns 128-255), fc_value (eight, likewise over four K-tiles);
+    16 KB each but the first."""
+    return torch.cat([weight_tile(wc1, slice(None), 0), weight_tile(wc2, slice(None), 0),
+                      *column_halves(wc3), *column_halves(wv)]).contiguous()
 
 
 def _aff(pairs) -> torch.Tensor:
@@ -87,7 +142,7 @@ def pointnet_tables(point_net) -> PointNetTables:
     bqv = torch.zeros(2, WIDTH, device=pn.conv1.kernel.device)
     bqv[0, :1] = att.fc_query.bias.detach().to(dt).float()
     bqv[1, : att.fc_value.bias.shape[0]] = att.fc_value.bias.detach().to(dt).float()
-    return PointNetTables(
+    t = PointNetTables(
         dt=dt,
         trunk_w=(w(pn.conv0a), w(pn.conv0b), w(stn.conv1), w(stn.conv2),
                  w(stn.conv3)),
@@ -101,6 +156,10 @@ def pointnet_tables(point_net) -> PointNetTables:
                        (pn.conv3, pn.bn3)]),
         bqv=bqv.contiguous(),
     )
+    if dt == torch.bfloat16 and _shapes(t) == KERNEL_SHAPES:
+        t.trunk_pack = pack_trunk_weights(*t.trunk_w[1:])
+        t.head_pack = pack_head_weights(*t.head_w[:3], t.head_w[4])
+    return t
 
 
 def _dense_bn(x, w, aff, layer: int, dt, relu: bool = True):
@@ -122,6 +181,14 @@ def pointnet_trunk_plain(patches: torch.Tensor, t: PointNetTables):
     return b, x.amax(dim=1)
 
 
+def attention_pool_plain(logit: torch.Tensor, value: torch.Tensor,
+                         dt: torch.dtype) -> torch.Tensor:
+    """K5's pooling: softmax of the (C, P, 1) logits over the P points,
+    the (C, P, N) values weighted by it and summed in f32 -> (C, N)."""
+    att = softmax(logit, 1, dt)
+    return (att * value.float()).sum(dim=1).to(dt)
+
+
 def pointnet_head_plain(x2: torch.Tensor, t: PointNetTables) -> torch.Tensor:
     """Plain PyTorch version of K5: (C, P, 64) -> (C, 256)."""
     x = x2
@@ -130,8 +197,7 @@ def pointnet_head_plain(x2: torch.Tensor, t: PointNetTables) -> torch.Tensor:
     wq, wv = t.head_w[3], t.head_w[4]
     logit = dense(x, wq, t.bqv[0, :1], t.dt)  # (C, P, 1)
     value = dense(x, wv, t.bqv[1, : wv.shape[1]], t.dt)  # (C, P, 256)
-    att = softmax(logit, 1, t.dt)
-    return (att * value.float()).sum(dim=1).to(t.dt)
+    return attention_pool_plain(logit, value, t.dt)
 
 
 def stn_apply(pooled: torch.Tensor, b: torch.Tensor, t: PointNetTables) -> torch.Tensor:
@@ -155,13 +221,14 @@ def pointnet_trunk(patches: torch.Tensor, t: PointNetTables):
         return pointnet_trunk_plain(patches, t)
     c, p, _ = patches.shape
     patches = patches.to(t.dt).contiguous()
-    _check(t, p, "pointnet_trunk", {"patches": patches})
+    _check(t, p, "pointnet_trunk", {"patches": patches}, t.trunk_pack)
     b = torch.empty((c, p, 64), dtype=t.dt, device=patches.device)
     pooled = torch.empty((c, WIDTH), dtype=t.dt, device=patches.device)
     if c:
         kernels.launch(
             "pointnet_trunk", "ppsurf_pointnet_trunk",
-            *(kernels.ptr(a) for a in (patches, *t.trunk_w, t.trunk_aff, b, pooled)),
+            *(kernels.ptr(a) for a in (patches, *t.trunk_w, t.trunk_aff, t.trunk_pack,
+                                       b, pooled)),
             c, p, kernels.dtype_code(t.dt),
         )
     return b, pooled
@@ -173,32 +240,39 @@ def pointnet_head(x2: torch.Tensor, t: PointNetTables) -> torch.Tensor:
         return pointnet_head_plain(x2, t)
     c, p, _ = x2.shape
     x2 = x2.contiguous()
-    _check(t, p, "pointnet_head", {"x2": x2})
+    _check(t, p, "pointnet_head", {"x2": x2}, t.head_pack)
     out = torch.empty((c, WIDTH), dtype=t.dt, device=x2.device)
     if c:
         kernels.launch(
             "pointnet_head", "ppsurf_pointnet_head",
-            *(kernels.ptr(a) for a in (x2, *t.head_w[:3], t.head_w[3],
-                                       t.head_w[4], t.head_aff, t.bqv, out)),
+            *(kernels.ptr(a) for a in (x2, *t.head_w, t.head_aff, t.bqv, t.head_pack,
+                                       out)),
             c, p, kernels.dtype_code(t.dt),
         )
     return out
 
 
-def _check(t: PointNetTables, p: int, name: str, data: typing.Dict[str, torch.Tensor]):
-    ws = t.trunk_w + t.head_w
-    want = [(3, 64), (64, 64), (64, 64), (64, 128), (128, WIDTH),
-            (64, 64), (64, 128), (128, WIDTH), (WIDTH, 1), (WIDTH, WIDTH)]
-    if [tuple(w.shape) for w in ws] != want or not 1 <= p <= 64:
+def _shapes(t: PointNetTables):
+    return [tuple(w.shape) for w in t.trunk_w + t.head_w]
+
+
+def _check(t: PointNetTables, p: int, name: str, data: typing.Dict[str, torch.Tensor],
+           pack: typing.Optional[torch.Tensor]):
+    if _shapes(t) != KERNEL_SHAPES or not 1 <= p <= 64:
         raise ValueError(
             f"{name} kernel is built for the PPSurf widths (latent 256) and "
-            f"P <= 64; got P={p}, weights {[tuple(w.shape) for w in ws]}"
+            f"P <= 64; got P={p}, weights {_shapes(t)}"
         )
     tensors = dict(data)
-    tensors.update({f"w{i}": w for i, w in enumerate(ws)})
+    tensors.update({f"w{i}": w for i, w in enumerate(t.trunk_w + t.head_w)})
     tensors.update(trunk_aff=t.trunk_aff, head_aff=t.head_aff, bqv=t.bqv)
     dtypes = {k: t.dt for k in tensors if k not in ("trunk_aff", "head_aff", "bqv")}
     dtypes.update(trunk_aff=torch.float32, head_aff=torch.float32, bqv=torch.float32)
+    if t.dt == torch.bfloat16:
+        if pack is None:
+            raise ValueError(f"{name}: bf16 tables need their weight pack "
+                             "(made by pointnet_tables)")
+        tensors["pack"] = pack
     kernels.check_cuda_args(name, tensors, dtypes)
 
 

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from ppsurf_tpu_torch.ops import knn, morton
-from ppsurf_tpu_torch.ops.decoder_tail import pack_wgmma_weights, unswizzle_tile
+from ppsurf_tpu_torch.ops.decoder_tail import pack_wgmma_weights
+from ppsurf_tpu_torch.ops.wgmma_layout import unswizzle_tile
 
 B = knn.KNN_BLOCK
 

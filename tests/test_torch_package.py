@@ -6,8 +6,9 @@
 - the committed weights map onto the port's network key for key;
 - on a card, each kernel wrapper launches its kernel and agrees with its
   plain version, K1 exactly also on duplicates, clusters with far queries,
-  shuffled clouds and masks with fewer valid points than k (marked `cuda`:
-  skips on a machine without one).
+  shuffled clouds and masks with fewer valid points than k, the bf16
+  tensor-core K3-K5 within the smoke's bf16 limits (marked `cuda`: skips
+  on a machine without one).
 """
 from __future__ import annotations
 
@@ -137,9 +138,10 @@ def test_kernels_match_plain_versions_on_the_card():
     from ppsurf_tpu_torch.ops import kernels
     from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail, decoder_tail_plain
     from ppsurf_tpu_torch.ops.knn import knn, knn_plain
+    from ppsurf_tpu_torch.ops.patches import patch_space
     from ppsurf_tpu_torch.ops.pointnet_att import (
         pointnet_head, pointnet_head_plain, pointnet_tables, pointnet_trunk,
-        pointnet_trunk_plain,
+        pointnet_trunk_plain, stn_apply,
     )
     from ppsurf_tpu_torch.ops.topk_rows import topk_rows, topk_rows_plain
     from ppsurf_tpu_torch.tools.microbench_extract import VARIANTS, extract, extract_plain
@@ -175,15 +177,33 @@ def test_kernels_match_plain_versions_on_the_card():
                                rtol=1e-4, atol=1e-4)
     assert all(v == 1 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
 
-    # K3 in bf16 (the tensor-core build), within the smoke's bf16 limits
-    tabs16 = decoder_tables(load_network(ppsurf_spec(dtype=torch.bfloat16),
-                                         load_infer_npz(WEIGHTS), dev).projection,
-                            torch.bfloat16)
+    def within_bf16_limits(pairs):
+        """The smoke's bf16 limits: max and mean |kernel - plain| within
+        1.6e-2 and 2e-6 x scale, scale = max(1, max |plain|)."""
+        scale = max([1.0] + [float(b.float().abs().max()) for _, b in pairs])
+        diffs = [(a.float() - b.float()).abs() for a, b in pairs]
+        mean = sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs)
+        err = max(float(d.max()) for d in diffs)
+        return err <= 1.6e-2 * scale and mean <= 2e-6 * scale
+
+    # K3, K4 and K5 in bf16 (the tensor-core builds), within the smoke's
+    # bf16 limits; K4/K5 at C=701 (not a multiple of the patches a block
+    # takes) and P in {17, 50, 64}, on patches in patch space (each scaled
+    # to unit radius) as the field evaluator makes them
+    net16 = load_network(ppsurf_spec(dtype=torch.bfloat16), load_infer_npz(WEIGHTS), dev)
+    tabs16 = decoder_tables(net16.projection, torch.bfloat16)
     lat16 = lat.to(torch.bfloat16)
-    ref = decoder_tail_plain(lat16, pts, q, ids, tabs16).float()
-    diff = (decoder_tail(lat16, pts, q, ids, tabs16).float() - ref).abs()
-    scale = max(1.0, float(ref.abs().max()))
-    assert float(diff.max()) <= 1.6e-2 * scale and float(diff.mean()) <= 2e-6 * scale
+    assert within_bf16_limits([(decoder_tail(lat16, pts, q, ids, tabs16),
+                                decoder_tail_plain(lat16, pts, q, ids, tabs16))])
+    pt16 = pointnet_tables(net16.point_net)
+    q701 = torch.rand(701, 3, generator=g, device=dev)
+    ids701 = knn_plain(pts, q701, 64)
+    for p in (17, 50, 64):
+        patches = patch_space(pts[ids701[:, :p]], q701).to(torch.bfloat16)
+        b_p, pool_p = pointnet_trunk_plain(patches, pt16)
+        assert within_bf16_limits(list(zip(pointnet_trunk(patches, pt16), (b_p, pool_p)))), p
+        x2 = stn_apply(pool_p, b_p, pt16)
+        assert within_bf16_limits([(pointnet_head(x2, pt16), pointnet_head_plain(x2, pt16))]), p
 
     # K1 edge cases, each exact: k in {1, 16, 64, 192, 256} on a shuffled
     # cloud, exact duplicates, a cluster with outliers and far queries, and

@@ -12,7 +12,8 @@ In order, it:
    unless every K1 instantiation has a 0-byte stack frame, the SASS of
    each bf16 tensor-core kernel (K3 decoder tail, K4 PointNet trunk, K5
    PointNet head) holds HGMMA instructions, and ptxas reports 0 spill
-   bytes for the K4 and K5 ones;
+   bytes for the K4 and K5 ones and for every K2 and T1 kernel; prints the
+   SASS instruction count of each T1 variant's pass loop;
 3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
    the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
    PointNet) at the production shapes, and the seven T1 selection
@@ -22,7 +23,11 @@ In order, it:
    computes the same function, that call with CUDA events; K1 also runs
    k in {1, 16, 64, 192, 256} on a shuffled cloud, exact duplicates, a
    cluster with outliers and far queries, and a mask with fewer valid
-   points than k, each exact; K1 is timed with the cloud's blocking made
+   points than k, each exact; K2 runs kc in {1, 31, 32, 33, 100, 192,
+   256} with k in {1, 63, 64, kc} on rows with ties, all-equal rows, NaN
+   rows, +-0 rows and rows of infinities and 1e38, over a row count no
+   block size divides, and T1 every variant at ncand in {1, 300, 1536},
+   each exact; K1 is timed with the cloud's blocking made
    once, as the field evaluator calls it, and the blocking's time is
    printed beside it; K1's bound counts the distances in the blocks its
    boxes cannot cull; the bf16 lines of K3, K4 and K5 are each followed
@@ -107,8 +112,10 @@ def torus_cloud(n: int, seed: int):
     return pts.astype(np.float32)
 
 
-def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
-    """Median milliseconds of fn() by CUDA events."""
+def cuda_ms(fn, reps: int = 5, warmup: int = 1, batch: int = 1) -> float:
+    """Median milliseconds of fn() by CUDA events, each reading the mean
+    over `batch` back-to-back calls (batch > 1 hides the host's time to
+    enqueue a call behind the previous call's run)."""
     import torch
 
     for _ in range(warmup):
@@ -118,10 +125,11 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -199,6 +207,42 @@ def knn_edge_cases(check, gen, dev, pts, q) -> None:
             check(f"K1 knn k={k}, {name} (ids differing)", float(e), 0.0)
 
 
+def select_edge_cases(check, gen, dev) -> None:
+    """K2 and T1 against their plain versions, 0 positions or elements
+    differing. K2 at kc in {1, 31, 32, 33, 100, 192, 256} and k in {1, 63,
+    64, kc} on 4099 rows (no multiple of the rows a block takes): random
+    rows with exact ties, rows all equal, rows of NaN, rows of -0 and +0,
+    rows strewn with +-inf, +-1e38 and NaN. T1, every variant, at ncand in
+    {1, 300, 1536} on 1001 rows, k = 64 (`full`: k = min(64, ncand))."""
+    import torch
+
+    from ppsurf_tpu_torch.ops.topk_rows import topk_rows, topk_rows_plain
+    from ppsurf_tpu_torch.tools.microbench_extract import VARIANTS, extract, extract_plain
+
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e38, -1e38, -0.0,
+                            0.0], device=dev)
+    for kc in (1, 31, 32, 33, 100, 192, 256):
+        d = torch.rand(4099, kc, generator=gen, device=dev)
+        d[::5, 1::2] = d[::5, 0:kc - 1:2][:, : d[::5, 1::2].shape[1]]
+        d[1::5] = 0.25
+        d[2::5] = float("nan")
+        d[3::5] = torch.where(torch.rand(kc, generator=gen, device=dev) < 0.5, -0.0, 0.0)
+        strew = torch.rand(d[4::5].shape, generator=gen, device=dev) < 0.3
+        pick = torch.randint(0, special.numel(), d[4::5].shape, generator=gen, device=dev)
+        d[4::5] = torch.where(strew, special[pick], d[4::5])
+        for k in sorted({1, 63, 64, kc}):
+            if k <= kc:
+                e = int((topk_rows(d, k) != topk_rows_plain(d, k)).sum())
+                check(f"K2 topk_rows kc={kc} k={k}, 4099 rows of ties, equal, NaN, +-0 and "
+                      "+-inf/1e38 (positions differing)", float(e), 0.0)
+    for n in (1, 300, 1536):
+        cand = torch.rand(1001, n, generator=gen, device=dev)
+        for variant in VARIANTS:
+            k = min(64, n) if variant == "full" else 64
+            e = int((extract(cand, variant, k) != extract_plain(cand, variant, k)).sum())
+            check(f"T1 extract {variant} 1001x{n} k={k} (elements differing)", float(e), 0.0)
+
+
 def bound_ms(n_bytes: float, ops: float, kind: str):
     tb = n_bytes / PEAK_BYTES * 1e3
     to = ops / PEAK_OPS[kind] * 1e3
@@ -240,7 +284,9 @@ def main() -> int:
     from ppsurf_tpu_torch.ops.topk_rows import topk_rows, topk_rows_plain
     from ppsurf_tpu_torch.recon.field import FieldEvaluator
     from ppsurf_tpu_torch.recon.predict import DEFAULT_WEIGHTS, Predictor
-    from ppsurf_tpu_torch.tools.microbench_extract import VARIANTS, extract, extract_plain
+    from ppsurf_tpu_torch.tools.microbench_extract import (
+        VARIANTS, extract, extract_plain, sass_loops,
+    )
     from ppsurf_tpu_torch.train.model import ppsurf_spec
 
     dev = torch.device("cuda")
@@ -282,6 +328,15 @@ def main() -> int:
             fail(f"no HGMMA in the bf16 {kernel}")
         if no_spill and spill != 0:
             fail(f"ptxas reports {spill} spill bytes (or none) for {kernel}")
+    select = {name: r for name, r in report.items()
+              if name.startswith(("topk_rows_kernel", "extract_kernel"))}
+    print("# K2/T1 spill bytes: " + ", ".join(f"{name} {r[1]}" for name, r in sorted(select.items())))
+    if len(select) != 8 + len(VARIANTS) or any(r[1] for r in select.values()):
+        fail(f"every K2 and T1 kernel must build with 0 spill bytes: {select}")
+    pass_loops = sass_loops(sass)
+    for variant in VARIANTS:
+        what = "innermost loops" if variant == "full" else "pass loop"
+        print(f"# T1 {variant}: {what} {pass_loops.get(variant)} SASS instructions")
     sys.stdout.flush()
 
     # ---- 3. kernels at production shapes ----
@@ -405,8 +460,11 @@ def main() -> int:
         mism = int((pos != pos_p).sum())
         err = float((d2c.gather(1, pos) - d2c.gather(1, pos_p)).abs().max())
         check(f"K2 topk_rows C={c} kc={KC} k=64 (positions differing)", float(mism), 0.0)
+        select_edge_cases(check, gen, dev)
         # the bound: bytes; a selection needs no more than kc*log2(k)
-        # compares a row
+        # compares a row. K2 is timed L2-warm: the refinement hands it d2
+        # straight from dist2_rows, so the path finds its 38 MB input in
+        # the 50 MB L2 as the repeated calls here do
         b_ms, b_by = bound_ms(c * KC * 4 + c * 64 * 8, c * KC * 6.0, "f32")
         results["topk_rows"] = dict(
             name="topk_rows", route="cuda", source="ppsurf_tpu_torch/csrc/select.cu",
@@ -418,6 +476,9 @@ def main() -> int:
             library_ms=cuda_ms(lambda: torch.topk(d2c, 64, dim=1, largest=False), reps=5),
             shape=f"C={c} kc={KC} k=64 f32",
         )
+        print(f"# K2 topk_rows: {results['topk_rows']['ms']:.4f} ms a call, "
+              f"{cuda_ms(lambda: topk_rows(d2c, 64), batch=20):.4f} ms over 20 back-to-back "
+              "calls", flush=True)
         del ids_c, cpts, x, d2c, pos, pos_p
 
         # T1: the selection microbenchmark's variants at the TPU tool's
@@ -441,7 +502,7 @@ def main() -> int:
             b_ms, b_by = bound_ms(T1_QUERIES * T1_NCAND * 4 + T1_QUERIES * T1_K * 4,
                                   T1_QUERIES * T1_NCAND * 6.0, "f32")
             lib = library.get(variant)
-            results[f"extract_{variant}"] = dict(
+            res = results[f"extract_{variant}"] = dict(
                 name=f"extract_{variant}", route="cuda",
                 source="ppsurf_tpu_torch/csrc/select.cu",
                 replaces="tools/microbench_extract.py:30",
@@ -451,7 +512,12 @@ def main() -> int:
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=None if lib is None else cuda_ms(lib, reps=3),
                 shape=f"Q={T1_QUERIES} ncand={T1_NCAND} k={T1_K} f32",
+                sass_loops=pass_loops.get(variant),
             )
+            per = (f"{res['ms'] * 1e6 / T1_QUERIES:.1f} ns per selection" if variant == "full"
+                   else f"{res['ms'] * 1e3 / T1_K:.3f} us per pass")
+            print(f"# T1 {variant}: {res['ms']:.4f} ms, {per}; SASS loop instructions "
+                  f"{res['sass_loops']}; library {res['library_ms']} ms", flush=True)
             del out, ref
         del slab
 
@@ -620,6 +686,12 @@ def main() -> int:
             fp.write(events.table(sort_by="self_device_time_total", row_limit=40))
         print(f"# profile: device busy {busy_us / 1e6:.3f} s of {total:.3f} s "
               f"({100 * busy_us / 1e6 / total:.1f}%); table in {args.profile}", flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total):
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                    n in e.key for n in ("knn_kernel", "decoder_tail", "trunk_", "head_",
+                                         "topk_rows_kernel")):
+                print(f"# profile: {e.key[:60]}: {e.self_device_time_total / 1e3:.3f} ms "
+                      f"device time in {e.count} calls", flush=True)
     if mesh is None or mesh.faces.shape[0] == 0:
         fail("the reconstruction produced no mesh")
     if not np.isfinite(mesh.vertices).all():

@@ -12,16 +12,21 @@ the plain version. Rows are per query (the TPU kernel's (kc, C) layout
 served its sublane reductions), so the result feeds `ids.gather(1, pos)`.
 
 The TPU kernel masks each chosen entry with a large constant and so needs
-inputs below 2e12. The CUDA kernel (`csrc/select.cu`) reserves no value:
-one warp per row, each lane holds ceil(kc/32) (value, position) pairs as
-64-bit keys ordered like torch.sort (NaN last, -0 == +0); k rounds each take
-the lane minimum, reduce it across the warp with a shuffle butterfly, and
-mark the winner's key taken (all ones, which no pair can equal).
+inputs below 2e12. The CUDA kernel (`csrc/select.cu`) reserves no value and
+runs no rounds: one warp per row, lane l holding the order-preserving 32-bit
+words of positions l, l+32, ... (torch.sort's order: NaN last, -0 == +0).
+A warp binary search between the row's least and greatest word finds W, the
+word of the k-th key (one `redux.sync` count a step, stopping where exactly
+k words lie at or below the midpoint); the words below W and the first
+(k - #below) words at W in position order are compacted into a shared
+buffer by ballot, and each kept position is written at its rank among them.
 
 What bounds it on an H100: bytes. It reads C*kc*4 and writes C*k*8 bytes,
 64 MB at the refinement's C=50 048, kc=192, k=64: 0.019 ms at 3.35 TB/s.
-The selection is k * kc compares per row (6e8 in all), 0.009 ms at the
-67 TFLOP/s f32 rate; the shuffles (10 per round) are what the kernel adds.
+A selection needs about kc*log2(k) compares a row (6e7 in all), 0.001 ms
+at the 67 TFLOP/s f32 rate. What the kernel adds is instructions: about 25
+search steps of kc/32 compares and a reduction each, and k ranks of k
+compares each.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import torch
 
 from ppsurf_tpu_torch.ops import kernels
 
-KC_MAX = 256  # the widest row the kernel holds in registers (8 pairs a lane)
+KC_MAX = 256  # the widest row the kernel holds in registers (8 words a lane)
 
 
 def topk_rows_plain(d2: torch.Tensor, k: int) -> torch.Tensor:

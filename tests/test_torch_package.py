@@ -6,9 +6,10 @@
 - the committed weights map onto the port's network key for key;
 - on a card, each kernel wrapper launches its kernel and agrees with its
   plain version, K1 exactly also on duplicates, clusters with far queries,
-  shuffled clouds and masks with fewer valid points than k, the bf16
-  tensor-core K3-K5 within the smoke's bf16 limits (marked `cuda`: skips
-  on a machine without one).
+  shuffled clouds and masks with fewer valid points than k, K2 also on
+  all-tie rows at kc in {33, 192, 256} and T1 `full` at 1536 candidates,
+  the bf16 tensor-core K3-K5 within the smoke's bf16 limits (marked
+  `cuda`: skips on a machine without one).
 """
 from __future__ import annotations
 
@@ -220,3 +221,14 @@ def test_kernels_match_plain_versions_on_the_card():
     for p, qq, v in cases:
         for k in (1, 16, 64, 192, 256):
             assert torch.equal(knn(p, qq, k, v), knn_plain(p, qq, k, v)), (k, p.shape)
+
+    # K2 on rows that are all ties (every other row one value repeated,
+    # the rest with pairs of equal entries), T1 `full` at 1536 candidates
+    for kc in (33, 192, 256):
+        d = torch.rand(701, kc, generator=g, device=dev)
+        d[::2] = d[::2, :1]
+        d[1::2, 1::2] = d[1::2, 0:kc - 1:2]
+        for k in sorted({min(64, kc), kc}):
+            assert torch.equal(topk_rows(d, k), topk_rows_plain(d, k)), (kc, k)
+    cand = torch.rand(701, 1536, generator=g, device=dev)
+    assert torch.equal(extract(cand, "full", 64), extract_plain(cand, "full", 64))

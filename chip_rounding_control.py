@@ -35,6 +35,10 @@ MUTANTS = {
         "ppsurf_tpu_torch/csrc/pointnet.cu",
         "const float att = rnd<bf16>(e / s);",
         "const float att = e / s;"),
+    "K5 bf16 softmax weight not rounded, patches of several tiles": (
+        "ppsurf_tpu_torch/csrc/pointnet.cu",
+        "att[r] = rnd<bf16>(e / s);",
+        "att[r] = e / s;"),
     "K5 bf16 fc_value epilogue: product not rounded before its bias": (
         "ppsurf_tpu_torch/csrc/pointnet.cu",
         "const float2 v = rnd2(acc0, acc1);",
@@ -45,11 +49,11 @@ MUTANTS = {
         "return rnd<bf16>(acc + b);"),
     "K3 head-mean attention not rounded": (
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
-        "att[tid] = rnd<T>(a / HEADS);",
-        "att[tid] = a / HEADS;"),
+        "att[tid] = tid < kn ? rnd<T>(a / HEADS) : 0.f;",
+        "att[tid] = tid < kn ? a / HEADS : 0.f;"),
 }
 # what chip_smoke.py needs of the checkout
-NEEDED = ("chip_smoke.py", "ppsurf_tpu_torch", "native", "models_pretrained")
+NEEDED = ("chip_smoke.py", "ppsurf_tpu_torch", "native", "models_pretrained", "configs")
 SKIP = shutil.ignore_patterns("_build", "__pycache__")
 
 

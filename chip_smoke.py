@@ -11,8 +11,9 @@ In order, it:
    sm_90a, prints the build seconds and ptxas' register report, and fails
    unless every K1 instantiation has a 0-byte stack frame, the SASS of
    each bf16 tensor-core kernel (K3 decoder tail, K4 PointNet trunk, K5
-   PointNet head) holds HGMMA instructions, and ptxas reports 0 spill
-   bytes for the K4 and K5 ones and for every K2 and T1 kernel; prints the
+   PointNet head for one tile and for up to four) holds HGMMA
+   instructions, and ptxas reports 0 spill bytes for the K4 and K5 ones
+   and for every K2 and T1 kernel; prints the
    SASS instruction count of each T1 variant's pass loop;
 3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
    the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
@@ -33,7 +34,11 @@ In order, it:
    boxes cannot cull; the bf16 lines of K3, K4 and K5 are each followed
    by the time of the kernel's products alone as bf16 torch.matmul (a
    yardstick) and by a control: the plain version with those products on
-   the tensor cores;
+   the tensor cores; then the builds of the other paths, bf16 and f32
+   under the same limits: K3 at latent 32 (POCO) at k in {1, 33, 50, 63,
+   64}, K3 at latent 256 at k in {1, 33, 40, 50, 63}, K4/K5 at P in {65,
+   100, 128, 200}, the ones on a path timed beside bound, plain version
+   and yardstick;
 4. reconstructs a seeded synthetic 60k-point surface cloud end to end with
    the committed weights in bf16 through `Predictor.reconstruct_shape`,
    with every kernel's launch count reset just before and read just after
@@ -50,8 +55,23 @@ In order, it:
    every vertex on both paths;
 6. evaluates one query chunk of the field in f32 on the card and on the
    CPU plain path and compares the two;
-7. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
+7. the same for `ppsurf_100nn` (patch P=100 from one K1 call at k=100,
+   K4/K5 on two tiles);
+8. reconstructs the cloud with POCO (latent 32, k=64, bf16) on seeded
+   weights with bench.py's analytic blend as `transform`: the mesh must
+   be the blend's sphere, and K1, K3 at latent 32 and K2 must launch;
+9. reconstructs it with `ppsurf_200nn` (bf16, committed weights; K1 at
+   k=200, K4/K5 on four tiles);
+10. reconstructs a 40-point cloud (K3 at k=40, patch P=40) at res 33;
+11. runs `python -m ppsurf_tpu_torch.cli predict` with config stacking on
+    a two-shape dataset written to a temporary directory and checks the
+    paths of the meshes it writes;
+12. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
+
+Phases 4 and 7-11 each reset every kernel's launch count just before
+they run and read it just after; each fails if a kernel of its path did
+not launch.
 
 Any failure exits non-zero before that last line. It needs one CUDA card
 and the repository checkout around it; it imports nothing of JAX.
@@ -65,6 +85,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import typing
 
@@ -84,6 +105,9 @@ T1_QUERIES, T1_NCAND, T1_K = 49152, 1536, 64
 # the kernels of the reconstruction path, each launched on the main path
 PATH_KERNELS = ("knn", "knn_k192", "decoder_tail", "pointnet_trunk", "pointnet_head",
                 "topk_rows")
+# the builds of the other paths (POCO, 100NN/200NN, clouds under 64 points)
+NEW_BUILDS = ("decoder_tail_l32", "decoder_tail_k40", "pointnet_trunk_wide_p100",
+              "pointnet_head_wide_p100", "pointnet_trunk_wide_p200", "pointnet_head_wide_p200")
 
 
 def fail(msg: str) -> typing.NoReturn:
@@ -249,6 +273,114 @@ def bound_ms(n_bytes: float, ops: float, kind: str):
     return (max(tb, to), "bytes" if tb >= to else "operations")
 
 
+# multiply-adds a row of K3 at latent L (64 heads), of K4 and of K5 a point
+def tail_macs(lat: int) -> int:
+    return 3 * lat + 3 * lat * lat + lat * 64
+
+
+TRUNK_MACS = 3 * 64 + 64 * 64 + 64 * 64 + 64 * 128 + 128 * 256
+HEAD_MACS = 64 * 64 + 64 * 128 + 128 * 256 + 256 + 256 * 256
+
+
+def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) -> None:
+    """The builds for POCO, patches wider than 64 and clouds under 64
+    points against their plain versions, bf16
+    and f32 under the K3-K5 limits: K3 at latent 32 (POCO, seeded weights)
+    at k in {1, 33, 50, 63, 64}, K3 at latent 256 at k in {1, 33, 40, 50,
+    63}, K4 and K5 at P in {65, 100, 128, 200} (two to four 64-row tiles).
+    The bf16 ones at the main paths' shapes are timed beside their bound,
+    their plain version and a bf16 torch.matmul yardstick of their
+    products: K3-L32 at k=64, K3 at k=40 (a 40-point cloud), K4/K5 at
+    P=100 and P=200."""
+    import torch
+
+    from ppsurf_tpu_torch.convert.infer_npz import load_network
+    from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail, decoder_tail_plain
+    from ppsurf_tpu_torch.ops.knn import knn
+    from ppsurf_tpu_torch.ops.patches import patch_space
+    from ppsurf_tpu_torch.ops.pointnet_att import (
+        pointnet_head, pointnet_head_plain, pointnet_tables, pointnet_trunk,
+        pointnet_trunk_plain, stn_apply,
+    )
+    from ppsurf_tpu_torch.train.model import poco_spec
+
+    n, c = pts.shape[0], q.shape[0]
+    ids256 = knn(pts, q, 256)
+    for dt, tag, tol in ((torch.bfloat16, "bf16", (1.6e-2, 2e-6)),
+                         (torch.float32, "f32", (1e-4, 2e-6))):
+        bf = dt == torch.bfloat16
+        esize = 2 if bf else 4
+        for lat_w, proj, ks in ((32, load_network(poco_spec(dtype=dt), poco_vars, dev).projection,
+                                 (1, 33, 50, 63, 64)),
+                                (256, nets[dt].projection, (1, 33, 40, 50, 63))):
+            tabs = decoder_tables(proj, dt)
+            lat = torch.randn(n, lat_w, generator=gen, device=dev).to(dt)
+            for k in ks:
+                idk = ids256[:, :k].contiguous()
+                err = compare(f"K3 decoder_tail L={lat_w} k={k} {tag}",
+                              [(decoder_tail(lat, pts, q, idk, tabs),
+                                decoder_tail_plain(lat, pts, q, idk, tabs))], tol)
+                name = {(32, 64): "decoder_tail_l32", (256, 40): "decoder_tail_k40"}.get((lat_w, k))
+                if not bf or name is None:
+                    continue
+                b_ms, b_by = bound_ms(n * lat_w * esize + n * 12 + c * 12 + c * k * 8
+                                      + c * lat_w * esize, c * k * tail_macs(lat_w) * 2.0, tag)
+                results[name] = dict(
+                    name=name, route="cuda", source="ppsurf_tpu_torch/csrc/decoder_tail.cu",
+                    replaces="ppsurf_tpu/ops/decoder_pallas.py:49", max_abs_err=err,
+                    ms=cuda_ms(lambda: decoder_tail(lat, pts, q, idk, tabs)),
+                    plain_ms=cuda_ms(lambda: decoder_tail_plain(lat, pts, q, idk, tabs), reps=2),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    shape=f"C={c} k={k} L={lat_w} heads=64 {tag}",
+                )
+                xg = lat[idk].reshape(-1, lat_w)
+                yardstick(f"K3 L={lat_w} k={k}", "fc2, fc3, fc_query, fc_value",
+                          [(xg, wt) for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv)])
+                del xg
+            del lat, tabs
+        pt = pointnet_tables(nets[dt].point_net)
+        for p in (65, 100, 128, 200):
+            pp = patch_space(pts[ids256[:, :p]], q).to(dt).contiguous()
+            b_k, pool_k = pointnet_trunk(pp, pt)
+            b_p, pool_p = pointnet_trunk_plain(pp, pt)
+            err4 = compare(f"K4 pointnet_trunk P={p} {tag}", [(b_k, b_p), (pool_k, pool_p)], tol)
+            x2 = stn_apply(pool_p, b_p, pt).contiguous()
+            err5 = compare(f"K5 pointnet_head P={p} {tag}",
+                           [(pointnet_head(x2, pt), pointnet_head_plain(x2, pt))], tol)
+            if bf and p in (100, 200):
+                for kernel, err, fn, plain, nb, macs in (
+                        ("pointnet_trunk", err4, lambda: pointnet_trunk(pp, pt),
+                         lambda: pointnet_trunk_plain(pp, pt),
+                         c * p * 3 * 2 + c * p * 64 * 2 + c * 256 * 2, TRUNK_MACS),
+                        ("pointnet_head", err5, lambda: pointnet_head(x2, pt),
+                         lambda: pointnet_head_plain(x2, pt), c * p * 64 * 2 + c * 256 * 2,
+                         HEAD_MACS)):
+                    name = f"{kernel}_wide_p{p}"
+                    b_ms, b_by = bound_ms(nb, c * p * macs * 2.0, tag)
+                    results[name] = dict(
+                        name=name, route="cuda", source="ppsurf_tpu_torch/csrc/pointnet.cu",
+                        replaces="ppsurf_tpu/ops/pointnet_pallas.py:"
+                                 + ("56" if kernel == "pointnet_trunk" else "72"),
+                        max_abs_err=err, ms=cuda_ms(fn, reps=5), plain_ms=cuda_ms(plain, reps=2),
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        shape=f"C={c} P={p} bf16",
+                    )
+                w0a, w0b, ws1, ws2, ws3 = pt.trunk_w
+                x3, x64 = pp.reshape(-1, 3), b_p.reshape(-1, 64)
+                x128 = torch.matmul(x64, ws2)
+                yardstick(f"K4 P={p}", "conv0a, conv0b, stn conv1-3",
+                          [(x3, w0a), (x64, w0b), (x64, ws1), (x64, ws2), (x128, ws3)])
+                wc1, wc2, wc3, wq, wv = pt.head_w
+                x64 = x2.reshape(-1, 64)
+                x128 = torch.matmul(x64, wc2)
+                x256 = torch.matmul(x128, wc3)
+                yardstick(f"K5 P={p}", "conv1-3, fc_query, fc_value",
+                          [(x64, wc1), (x64, wc2), (x128, wc3), (x256, wq), (x256, wv)])
+                del x3, x64, x128, x256
+            del pp, b_k, pool_k, b_p, pool_p, x2
+    del ids256
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resolution", type=int, default=257)
@@ -271,7 +403,10 @@ def main() -> int:
     import numpy as np
 
     from ppsurf_tpu_torch import native
+    from ppsurf_tpu_torch import cli
     from ppsurf_tpu_torch.convert.infer_npz import load_infer_npz, load_network
+    from ppsurf_tpu_torch.convert.init import init_variables
+    from ppsurf_tpu_torch.io.ply import save_ply
     from ppsurf_tpu_torch.ops import kernels
     from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail, decoder_tail_plain
     from ppsurf_tpu_torch.ops.knn import dist2, dist2_rows, knn, knn_blocks, knn_plain
@@ -287,7 +422,7 @@ def main() -> int:
     from ppsurf_tpu_torch.tools.microbench_extract import (
         VARIANTS, extract, extract_plain, sass_loops,
     )
-    from ppsurf_tpu_torch.train.model import ppsurf_spec
+    from ppsurf_tpu_torch.train.model import poco_spec, ppsurf_spec
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -318,7 +453,8 @@ def main() -> int:
                 lib.path])
     for tag, kernel, no_spill in (("K3", "decoder_tail_wgmma_kernel", False),
                                   ("K4", "trunk_wgmma_kernel", True),
-                                  ("K5", "head_wgmma_kernel", True)):
+                                  ("K5", "head_wgmma_kernel", True),
+                                  ("K5", "head_wgmma_tiles_kernel", True)):
         hgmma = sum(part.count("HGMMA") for part in sass.split("Function : ")
                     if kernel in part.split("\n", 1)[0])
         frame, spill = report.get(kernel, (None, None))
@@ -343,6 +479,8 @@ def main() -> int:
     variables = load_infer_npz(DEFAULT_WEIGHTS)
     nets = {dt: load_network(ppsurf_spec(dtype=dt), variables, dev)
             for dt in (torch.float32, torch.bfloat16)}
+    # POCO: no trained weights are committed; seeded ones of the JAX tree
+    poco_vars = init_variables(poco_spec(), seed=0)
     cloud = torus_cloud(N_POINTS, seed=0)
     bbox = (cloud.min(0), cloud.max(0))
     pts = torch.from_numpy(cloud[morton_order(cloud, *bbox)]).to(dev)
@@ -641,6 +779,7 @@ def main() -> int:
                 del x64, x128, x256
                 control("K5", pn_mod, lambda: pointnet_head_plain(x2, pt), [h_p], tol)
             del pp, b_k, pool_k, b_p, pool_p, x2, h_k, h_p
+        wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     if failures:
@@ -707,8 +846,8 @@ def main() -> int:
     print(f"# e2e field queries {queries}, mesh {mesh.vertices.shape[0]} vertices "
           f"{mesh.faces.shape[0]} faces (with K4 and K5 on the CUDA cores: 323677 vertices "
           f"647018 faces at res 257); launches {json.dumps(launches)}", flush=True)
-    for name, res in results.items():
-        res["launches"] = launches[name]
+    for name in PATH_KERNELS + tuple(f"extract_{v}" for v in VARIANTS):
+        results[name]["launches"] = launches[name]
     n_ref, iters = refine_in["v"].shape[0], refine_in["iters"]
     chunks = -(-n_ref // ev.chunk)
     print(f"# refine: {n_ref} vertices in {chunks} chunks x {iters} iterations on the "
@@ -743,12 +882,12 @@ def main() -> int:
               f"{float(np.abs(v_kernel - v_plain).max()):.3e}", flush=True)
         names = ("v", "v1", "v2", "p1", "p2")
         first = morton_order(refine_in["v"], *ev._bbox)[:ev.chunk]
-        args = [refine_in[k][first] for k in names]
+        chunk_in = [refine_in[k][first] for k in names]
         runs = {}
         for path in ("plain", "cand"):
             kernels.reset_launches()
             failed0 = ev.stat_cert_failed
-            runs[path] = ev.refine_bisection(*args, iters, force_full=path == "plain")
+            runs[path] = ev.refine_bisection(*chunk_in, iters, force_full=path == "plain")
             nonzero = {k: v for k, v in kernels.LAUNCHES.items() if v}
             print(f"# first refine chunk ({first.size} vertices) on the {path} path: launches "
                   f"{json.dumps(nonzero)}; certificate failures "
@@ -756,14 +895,14 @@ def main() -> int:
         # the plain path's iterates, replayed bit for bit, explain a
         # difference where one of them has an exact distance tie among its
         # 65 nearest (K2 orders tied candidates by position, K1 by id)
-        order = morton_order(args[0], *ev._bbox)
+        order = morton_order(chunk_in[0], *ev._bbox)
         iterates = []
 
         def replay_ids(x):
             iterates.append(x.clone())
             return knn(ev.pts, x, ev.k)
 
-        replay = ev._bisect(*ev._sorted(*args, order=order), iters, replay_ids)
+        replay = ev._bisect(*ev._sorted(*chunk_in, order=order), iters, replay_ids)
         if not np.array_equal(replay.cpu().numpy(), runs["plain"][order]):
             fail("the replay of the plain path differs from the plain path")
         differ = np.flatnonzero((runs["plain"][order] != runs["cand"][order]).any(axis=1))
@@ -811,9 +950,151 @@ def main() -> int:
         if not (np.isfinite(v_gpu).all() and err <= 1e-3):
             fail(f"f32 field on the card disagrees with the CPU plain path: {err}")
 
+    # ---- 7. ppsurf_100nn: one f32 chunk on the card vs the CPU plain path ----
+    with torch.inference_mode():
+        spec100 = ppsurf_spec(num_pts_local=100, dtype=torch.float32)
+        gpu100 = FieldEvaluator(load_network(spec100, variables, dev), spec100, cloud, lat32)
+        cpu100 = FieldEvaluator(load_network(spec100, variables, torch.device("cpu")), spec100,
+                                cloud, lat32.cpu())
+        kernels.reset_launches()
+        v_gpu = gpu100(qc)
+        torch.cuda.synchronize()
+        launches100 = dict(kernels.LAUNCHES)
+        v_cpu = cpu100(qc)
+        err = float(np.abs(v_gpu - v_cpu).max())
+        print(f"# ppsurf_100nn f32 field chunk of {qc.shape[0]} (patch P=100 from one K1 call "
+              f"at k=100): card vs CPU plain path max_abs_err {err:.3e}; launches "
+              f"{json.dumps({k: v for k, v in launches100.items() if v})}", flush=True)
+        if not (np.isfinite(v_gpu).all() and err <= 1e-3):
+            fail(f"ppsurf_100nn f32 field on the card disagrees with the CPU plain path: {err}")
+        need = ("knn", "decoder_tail", "pointnet_trunk_wide", "pointnet_head_wide")
+        if any(launches100[k] == 0 for k in need) or launches100["pointnet_trunk"]:
+            fail(f"the ppsurf_100nn chunk did not run on the wide K4/K5 builds: {launches100}")
+        for name in ("pointnet_trunk_wide_p100", "pointnet_head_wide_p100"):
+            results[name]["launches"] = launches100[name[:-5]]
+        del gpu100, cpu100
+
+    # ---- 8. POCO at res 257: seeded weights, bench.py's analytic blend ----
+    radius = float(np.abs(cloud).max())
+
+    def blend(vals, qq):
+        """bench.py:125-133: the untrained field plus a sphere's SDF, so
+        that region growing and refinement see a surface"""
+        return 0.01 * vals + (torch.sqrt((qq.float() ** 2).sum(-1)) - radius)
+
+    pspec = poco_spec(dtype=torch.bfloat16, gen_subsample_manifold_iter=args.passes,
+                      gen_refine_iter=args.refine)
+    poco = Predictor(pspec, variables=poco_vars, device="cuda", verbose=False)
+    ptimes = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pmesh = poco.reconstruct_shape(cloud, seed=0, resolution=args.resolution, transform=blend,
+                                   timings=ptimes)
+    torch.cuda.synchronize()
+    ptotal = time.perf_counter() - t0
+    plaunch = dict(kernels.LAUNCHES)
+    if pmesh is None or pmesh.faces.shape[0] == 0 or not np.isfinite(pmesh.vertices).all():
+        fail("the POCO reconstruction produced no finite mesh")
+    # the surface lies where |q| - radius = -0.01 x field, the field in
+    # [-1, 1]: within 0.01 of the sphere, plus the mesh's voxel error
+    off = np.abs(np.linalg.norm(pmesh.vertices, axis=1) - radius)
+    band = 0.01 + 2.0 / args.resolution
+    print(f"# POCO (latent 32, k=64, bf16, seeded weights + blend) res {args.resolution}: "
+          f"{ptotal:.2f} s; phases " + " ".join(f"{k}={v:.2f}s" for k, v in ptimes.items())
+          + f"; mesh {pmesh.vertices.shape[0]} vertices {pmesh.faces.shape[0]} faces, "
+          f"| |vertex| - {radius:.4f} | at most {off.max():.4f}, 99th percentile "
+          f"{np.percentile(off, 99):.4f} (band {band:.4f}); field queries "
+          f"{poco.last_evaluator.stat_queries}; launches "
+          f"{json.dumps({k: v for k, v in plaunch.items() if v})}", flush=True)
+    if np.percentile(off, 99) > band:
+        fail(f"the POCO mesh is not the blend's sphere: 99th percentile of the radial "
+             f"offset {np.percentile(off, 99)} > {band}")
+    need = ("knn", "knn_k192", "decoder_tail_l32", "topk_rows")
+    if (any(plaunch[k] == 0 for k in need)
+            or any(plaunch[k] for k in ("decoder_tail", "pointnet_trunk", "pointnet_head"))):
+        fail(f"the POCO reconstruction did not run on its kernels: {plaunch}")
+    results["decoder_tail_l32"]["launches"] = plaunch["decoder_tail_l32"]
+    del poco, pmesh
+
+    # ---- 9. ppsurf_200nn at res 257: four-tile K4/K5, K1 at k=200 ----
+    spec200 = ppsurf_spec(num_pts_local=200, dtype=torch.bfloat16,
+                          gen_subsample_manifold_iter=args.passes, gen_refine_iter=args.refine)
+    wide = Predictor(spec200, variables=variables, device="cuda", verbose=False)
+    wtimes = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    wmesh = wide.reconstruct_shape(cloud, seed=0, resolution=args.resolution, timings=wtimes)
+    torch.cuda.synchronize()
+    wtotal = time.perf_counter() - t0
+    wlaunch = dict(kernels.LAUNCHES)
+    if wmesh is None or wmesh.faces.shape[0] == 0 or not np.isfinite(wmesh.vertices).all():
+        fail("the ppsurf_200nn reconstruction produced no finite mesh")
+    print(f"# ppsurf_200nn (P=200, bf16, committed weights) res {args.resolution}: "
+          f"{wtotal:.2f} s; phases " + " ".join(f"{k}={v:.2f}s" for k, v in wtimes.items())
+          + f"; mesh {wmesh.vertices.shape[0]} vertices {wmesh.faces.shape[0]} faces (50NN: "
+          f"{mesh.vertices.shape[0]}); field queries {wide.last_evaluator.stat_queries}; "
+          f"launches {json.dumps({k: v for k, v in wlaunch.items() if v})}", flush=True)
+    need = ("knn", "knn_k192", "decoder_tail", "pointnet_trunk_wide", "pointnet_head_wide",
+            "topk_rows")
+    if any(wlaunch[k] == 0 for k in need) or wlaunch["pointnet_trunk"]:
+        fail(f"the ppsurf_200nn reconstruction did not run on its kernels: {wlaunch}")
+    for name in ("pointnet_trunk_wide_p200", "pointnet_head_wide_p200"):
+        results[name]["launches"] = wlaunch[name[:-5]]
+    del wide, wmesh
+
+    # ---- 10. a 40-point cloud: K3 at k=40, K4/K5 at P=40 ----
+    d = np.random.RandomState(3).randn(40, 3)
+    small = (d / np.linalg.norm(d, axis=1, keepdims=True) * 0.4).astype(np.float32)
+    kernels.reset_launches()
+    smesh = predictor.reconstruct_shape(small, seed=0, resolution=33)
+    torch.cuda.synchronize()
+    slaunch = dict(kernels.LAUNCHES)
+    ev_small = predictor.last_evaluator
+    if smesh is None or smesh.faces.shape[0] == 0 or not np.isfinite(smesh.vertices).all():
+        fail("the 40-point cloud produced no finite mesh")
+    print(f"# 40-point cloud, res 33, bf16: decoder k={ev_small.k}, patch P={ev_small.patch_k}; "
+          f"mesh {smesh.vertices.shape[0]} vertices {smesh.faces.shape[0]} faces; launches "
+          f"{json.dumps({k: v for k, v in slaunch.items() if v})}", flush=True)
+    if (ev_small.k, ev_small.patch_k) != (40, 40) or not slaunch["decoder_tail"]:
+        fail(f"the 40-point cloud did not run K3 at k=40: {slaunch}")
+    results["decoder_tail_k40"]["launches"] = slaunch["decoder_tail"]
+
+    # ---- 11. `cli predict` on a two-shape dataset written to a temp dir ----
+    with tempfile.TemporaryDirectory() as tmp:
+        names = ("shape_a", "shape_b")
+        os.makedirs(os.path.join(tmp, "tiny", "04_pts_vis"))
+        for i, name in enumerate(names):
+            save_ply(os.path.join(tmp, "tiny", "04_pts_vis", name + ".xyz.ply"),
+                     torus_cloud(20000, seed=10 + i))
+        testset = os.path.join(tmp, "tiny", "testset.txt")
+        with open(testset, "w") as fp:
+            fp.write("\n".join(names) + "\n")
+        results_dir = os.path.join(tmp, "results")
+        configs = [os.path.join(HERE, "configs", f"{c}.yaml")
+                   for c in ("poco", "ppsurf", "ppsurf_50nn")]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["predict", *[a for c in configs for a in ("-c", c)],
+                       "--data.init_args.in_file", testset,
+                       "--model.init_args.results_dir", results_dir,
+                       "--model.init_args.gen_resolution_global", "129"])
+        csecs = time.perf_counter() - t0
+        clau = dict(kernels.LAUNCHES)
+        want = [os.path.join(results_dir, "ppsurf_50nn", "tiny", "meshes", f"{name}.xyz.ply")
+                for name in names]
+        found = sorted(os.path.relpath(os.path.join(r, f), tmp)
+                       for r, _, fs in os.walk(results_dir) for f in fs)
+        print(f"# cli predict, two shapes, res 129: rc {rc}, {csecs:.2f} s; wrote {found}; "
+              f"launches {json.dumps({k: v for k, v in clau.items() if v})}", flush=True)
+        if rc != 0 or found != [os.path.relpath(w, tmp) for w in want]:
+            fail(f"cli predict wrote {found}, expected {want} (rc {rc})")
+        if any(clau[k] == 0 for k in PATH_KERNELS):
+            fail(f"cli predict did not run every path kernel: {clau}")
+
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in
-                                  PATH_KERNELS + tuple(f"extract_{v}" for v in VARIANTS)]}))
+                                  PATH_KERNELS + NEW_BUILDS
+                                  + tuple(f"extract_{v}" for v in VARIANTS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

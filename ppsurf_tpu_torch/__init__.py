@@ -1,7 +1,7 @@
 """ppsurf_tpu_torch — the PyTorch/CUDA port of ppsurf_tpu.
 
-Reconstructs a surface from a point cloud with the PPSurf network on an
-NVIDIA GPU. Plain tensor code is PyTorch; the hot kernels of the field
+Reconstructs a surface from a point cloud with the PPSurf or the POCO
+network on an NVIDIA GPU (`python -m ppsurf_tpu_torch.cli predict|rec`). Plain tensor code is PyTorch; the hot kernels of the field
 evaluation and refinement (k-NN, candidate selection, decoder tail, and
 the two PointNet stages) are CUDA C++ under `csrc/`, built with nvcc on
 first use into `_build/`. On CPU tensors every kernel wrapper runs its

@@ -3,7 +3,8 @@
 `load_infer_npz` reads the compact interchange format the JAX package
 ships (`models_pretrained/*.npz`, keys 'params/...' and 'batch_stats/...',
 large kernels stored as f16). `from_jax_variables` flattens such a nested
-variables tree into the port's state dict: the port's modules carry the
+variables tree, of a PPSurf or a POCO network (or one made by
+`convert/init.py`), into the port's state dict: the port's modules carry the
 flax names, so 'params/encoder/cv0/fc1/kernel' becomes
 'encoder.cv0.fc1.kernel' and 'batch_stats/point_net/bn1/mean' becomes
 'point_net.bn1.mean'. Flax `Dense` kernels stay (in, out) and the port

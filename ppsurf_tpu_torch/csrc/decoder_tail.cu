@@ -2,11 +2,13 @@
 //
 // Replaces the TPU kernel `_decoder_tail_kernel`
 // (ppsurf_tpu/ops/decoder_pallas.py:49). Design and bounds: see
-// ppsurf_tpu_torch/ops/decoder_tail.py. Both builds gather the k=64
-// neighbours' projected latents straight from the (N, 256) table, so the
-// (C*k, 256) gathered tensor never exists, keep a query's 64 x 256
-// activations in shared memory through fc2, fc3, fc_query and fc_value,
-// and write the attention-pooled (256,) feature.
+// ppsurf_tpu_torch/ops/decoder_tail.py. Every build gathers the k <= 64
+// neighbours' projected latents straight from the (N, L) table, so the
+// (C*k, L) gathered tensor never exists, and writes the attention-pooled
+// (L,) feature. A query's rows are 64 neighbours: for k < 64 the rows past
+// k repeat neighbour 0, count as -inf logits in the per-head softmax and
+// get weight 0. The latent-256 builds keep a query's 64 x 256 activations
+// in shared memory through fc2, fc3, fc_query and fc_value.
 //
 // bf16 (`decoder_tail_wgmma_kernel`): the four products run on the tensor
 // cores (`wgmma` m64n128k16 / m64n64k16). Persistent blocks, one per SM,
@@ -23,6 +25,10 @@
 // every product as f32 FMA on the CUDA cores. It stays there: TF32 tensor
 // cores keep 10 mantissa bits and would miss the f32 limit (1e-4 x scale)
 // that the f32 field is held to.
+//
+// latent 32, f32 and bf16 (`decoder_tail_narrow_kernel`, POCO): one thread
+// a neighbour row with its activations in registers; see `namespace
+// narrow` below.
 #include "common.cuh"
 #include "gmma.cuh"
 
@@ -39,18 +45,19 @@ constexpr int K = 64;       // neighbours per query (= ROWS)
 constexpr int LAT = 256;    // latent width
 constexpr int HEADS = 64;   // attention heads
 
-// softmax over the k neighbours per head, mean over heads -> att (k,);
-// every step rounds to T, sums accumulate in f32. Threads tid < 64 work;
-// `sync` is the barrier of the threads that share the arrays.
+// softmax over the first `kn` <= 64 neighbours per head, mean over heads
+// -> att (64,): rows past kn count as -inf logits and get weight 0. Every
+// step rounds to T, sums accumulate in f32. Threads tid < 64 work; `sync`
+// is the barrier of the threads that share the arrays.
 template <typename T, typename Sync>
 __device__ __forceinline__ void head_attention(const float* logits, float* hmax,
                                                float* hsum, float* att, int tid,
-                                               Sync sync) {
+                                               int kn, Sync sync) {
   if (tid < HEADS) {
     float m = logits[tid];
-    for (int r = 1; r < K; ++r) m = fmaxf(m, logits[r * (HEADS + 1) + tid]);
+    for (int r = 1; r < kn; ++r) m = fmaxf(m, logits[r * (HEADS + 1) + tid]);
     float s = 0.f;
-    for (int r = 0; r < K; ++r)
+    for (int r = 0; r < kn; ++r)
       s += rnd<T>(expf(rnd<T>(logits[r * (HEADS + 1) + tid] - m)));
     hmax[tid] = m;
     hsum[tid] = rnd<T>(s);
@@ -61,7 +68,7 @@ __device__ __forceinline__ void head_attention(const float* logits, float* hmax,
     for (int hh = 0; hh < HEADS; ++hh)
       a += rnd<T>(rnd<T>(expf(rnd<T>(logits[tid * (HEADS + 1) + hh] - hmax[hh]))) /
                   hsum[hh]);
-    att[tid] = rnd<T>(a / HEADS);
+    att[tid] = tid < kn ? rnd<T>(a / HEADS) : 0.f;
   }
   sync();
 }
@@ -85,7 +92,7 @@ decoder_tail_kernel(const T* __restrict__ latents, const float* __restrict__ pts
                     const T* __restrict__ w3, const float* __restrict__ b3,
                     const T* __restrict__ wq, const float* __restrict__ bq,
                     const T* __restrict__ wv, const float* __restrict__ bv,
-                    T* __restrict__ out) {
+                    T* __restrict__ out, int kn) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* h = reinterpret_cast<T*>(smem);
   float* logits = reinterpret_cast<float*>(h + ROWS * LAT);
@@ -99,7 +106,8 @@ decoder_tail_kernel(const T* __restrict__ latents, const float* __restrict__ pts
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   if (tid < K) {
-    const int j = static_cast<int>(ids[(int64_t)c * K + tid]);
+    // rows past kn repeat neighbour 0 and get attention weight 0
+    const int j = static_cast<int>(ids[(int64_t)c * kn + (tid < kn ? tid : 0)]);
     nid[tid] = j;
 #pragma unroll
     for (int d = 0; d < 3; ++d)
@@ -148,7 +156,7 @@ decoder_tail_kernel(const T* __restrict__ latents, const float* __restrict__ pts
   }
   __syncthreads();
 
-  head_attention<T>(logits, hmax, hsum, att, tid, [] { __syncthreads(); });
+  head_attention<T>(logits, hmax, hsum, att, tid, kn, [] { __syncthreads(); });
 
   // fc_value, weighted by att and summed over the neighbours in f32
   {
@@ -241,7 +249,7 @@ decoder_tail_wgmma_kernel(const bf16* __restrict__ latents,
                           const float* __restrict__ bq,
                           const float* __restrict__ bv,
                           const unsigned char* __restrict__ wpack,
-                          bf16* __restrict__ out, int c) {
+                          bf16* __restrict__ out, int c, int kn) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* slots = gm::align1024(smem_raw);
   unsigned char* acts = slots + STAGES * SLICE;
@@ -288,7 +296,7 @@ decoder_tail_wgmma_kernel(const bf16* __restrict__ latents,
 
     // h = relu(x + rnd(rel @ W1)), x the gathered projected latents
     if (t < K) {
-      const int j = static_cast<int>(ids[static_cast<int64_t>(cq) * K + t]);
+      const int j = static_cast<int>(ids[static_cast<int64_t>(cq) * kn + (t < kn ? t : 0)]);
       nid[t] = j;
 #pragma unroll
       for (int d = 0; d < 3; ++d)
@@ -364,7 +372,7 @@ decoder_tail_wgmma_kernel(const bf16* __restrict__ latents,
       }
     }
     sync();
-    head_attention<bf16>(logits, hmax, hsum, att, t, sync);
+    head_attention<bf16>(logits, hmax, hsum, att, t, kn, sync);
 
     // fc_value (act0), weighted by att and summed over the neighbours in f32
     {
@@ -401,11 +409,195 @@ decoder_tail_wgmma_kernel(const bf16* __restrict__ latents,
   }
 }
 
+// ---- L = 32 (POCO): one thread a neighbour row on the CUDA cores ----
+//
+// Each group of 64 threads takes one query at a time (persistent blocks of
+// four groups, a named barrier per group); thread r holds row r's 32
+// activations in registers and runs every product of its row as f32 FMA
+// with the weights, kept once per block in shared memory as f32, read as
+// broadcast float4. fc_query's 64 logits of a row go to shared memory for
+// `head_attention`; the attention-weighted values are summed over the rows
+// in f32 by one thread a column. Both dtypes share the kernel: in bf16 the
+// products are f32 FMA too and each output rounds where the plain version
+// rounds.
+namespace narrow {
+
+constexpr int LAT = 32;
+constexpr int GROUPS = 4;                 // queries in flight a block
+constexpr int THREADS_NARROW = GROUPS * K;   // one thread a neighbour row
+// f32 weights: w1 (3 x 32), w2, w3 (32 x 32), wq (32 x 64), wv (32 x 32),
+// then the biases b2, b3 (32), bq (64), bv (32)
+constexpr int W1 = 0, W2 = W1 + 3 * LAT, W3 = W2 + LAT * LAT, WQ = W3 + LAT * LAT,
+              WV = WQ + LAT * HEADS, B2 = WV + LAT * LAT, B3 = B2 + LAT, BQ = B3 + LAT,
+              BV = BQ + HEADS, WFLOATS = BV + LAT;
+// a group's floats: logits (64 x 65, later the weighted values), head
+// max, head sum, att
+constexpr int GFLOATS = K * (HEADS + 1) + 3 * K;
+constexpr size_t SMEM = sizeof(float) * (WFLOATS + GROUPS * GFLOATS);
+
+// out[0:N] = in[0:32] @ W[32][N] (W row-major, f32 in shared memory), each
+// output accumulated in f32 over the inputs in order
+template <int N>
+__device__ __forceinline__ void row_matmul(const float (&in)[LAT], const float* w,
+                                           float (&out)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < LAT; ++kk) {
+    const float4* row = reinterpret_cast<const float4*>(w + kk * N);
+#pragma unroll
+    for (int j4 = 0; j4 < N / 4; ++j4) {
+      const float4 v = row[j4];
+      out[4 * j4] = fmaf(in[kk], v.x, out[4 * j4]);
+      out[4 * j4 + 1] = fmaf(in[kk], v.y, out[4 * j4 + 1]);
+      out[4 * j4 + 2] = fmaf(in[kk], v.z, out[4 * j4 + 2]);
+      out[4 * j4 + 3] = fmaf(in[kk], v.w, out[4 * j4 + 3]);
+    }
+  }
+}
+
+// a dense layer's epilogue (`decoder_pallas.py:22-26`): the product rounds
+// to T, then its sum with the bias; relu optional
+template <typename T>
+__device__ __forceinline__ void dense_epilogue(float (&acc)[LAT], const float* b, bool relu) {
+#pragma unroll
+  for (int j = 0; j < LAT; ++j) {
+    const float y = rnd<T>(rnd<T>(acc[j]) + b[j]);
+    acc[j] = relu ? fmaxf(y, 0.f) : y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ src, float (&x)[LAT]) {
+  constexpr int PER = 16 / sizeof(T);  // elements a 16-byte load
+#pragma unroll
+  for (int u = 0; u < LAT / PER; ++u) {
+    const uint4 raw = reinterpret_cast<const uint4*>(src)[u];
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < PER; ++e) x[u * PER + e] = Num<T>::to_f(v[e]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS_NARROW)
+decoder_tail_narrow_kernel(const T* __restrict__ latents, const float* __restrict__ pts,
+                        const float* __restrict__ queries,
+                        const int64_t* __restrict__ ids, const T* __restrict__ w1,
+                        const T* __restrict__ w2, const float* __restrict__ b2,
+                        const T* __restrict__ w3, const float* __restrict__ b3,
+                        const T* __restrict__ wq, const float* __restrict__ bq,
+                        const T* __restrict__ wv, const float* __restrict__ bv,
+                        T* __restrict__ out, int c, int kn) {
+  extern __shared__ __align__(16) float fsm[];
+  float* w = fsm;
+  for (int i = threadIdx.x; i < WFLOATS; i += THREADS_NARROW) {
+    float v;
+    if (i < W2) v = Num<T>::to_f(w1[i - W1]);
+    else if (i < W3) v = Num<T>::to_f(w2[i - W2]);
+    else if (i < WQ) v = Num<T>::to_f(w3[i - W3]);
+    else if (i < WV) v = Num<T>::to_f(wq[i - WQ]);
+    else if (i < B2) v = Num<T>::to_f(wv[i - WV]);
+    else if (i < B3) v = b2[i - B2];
+    else if (i < BQ) v = b3[i - B3];
+    else if (i < BV) v = bq[i - BQ];
+    else v = bv[i - BV];
+    w[i] = v;
+  }
+  __syncthreads();
+
+  const int g = threadIdx.x / K;
+  const int r = threadIdx.x % K;
+  float* logits = fsm + WFLOATS + g * GFLOATS;
+  float* hmax = logits + K * (HEADS + 1);
+  float* hsum = hmax + K;
+  float* att = hsum + K;
+  auto sync = [g] { ppsurf::gmma::named_barrier(1 + g, K); };
+
+#pragma unroll 1
+  for (int cq = blockIdx.x * GROUPS + g; cq < c; cq += gridDim.x * GROUPS) {
+    // h = relu(x + rnd(rel @ W1)); rows past kn repeat neighbour 0
+    const int j = static_cast<int>(ids[static_cast<int64_t>(cq) * kn + (r < kn ? r : 0)]);
+    float rel[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) rel[d] = rnd<T>(__fsub_rn(queries[3 * cq + d], pts[3 * j + d]));
+    float h[LAT];
+    load_row<T>(latents + static_cast<int64_t>(j) * LAT, h);
+#pragma unroll
+    for (int col = 0; col < LAT; ++col) {
+      const float rw = rnd<T>(fmaf(rel[2], w[W1 + 2 * LAT + col],
+                                   fmaf(rel[1], w[W1 + LAT + col], rel[0] * w[W1 + col])));
+      h[col] = fmaxf(rnd<T>(h[col] + rw), 0.f);
+    }
+
+    // fc2, fc3 (+relu)
+    float y[LAT];
+    row_matmul<LAT>(h, w + W2, y);
+    dense_epilogue<T>(y, w + B2, true);
+    row_matmul<LAT>(y, w + W3, h);
+    dense_epilogue<T>(h, w + B3, true);
+
+    // fc_query -> this row's 64 head logits
+    {
+      float q[HEADS];
+      row_matmul<HEADS>(h, w + WQ, q);
+#pragma unroll
+      for (int hh = 0; hh < HEADS; ++hh)
+        logits[r * (HEADS + 1) + hh] = rnd<T>(rnd<T>(q[hh]) + w[BQ + hh]);
+    }
+    sync();
+    head_attention<T>(logits, hmax, hsum, att, r, kn, sync);
+
+    // fc_value, weighted by att; the rows summed in f32 by column
+    row_matmul<LAT>(h, w + WV, y);
+    dense_epilogue<T>(y, w + BV, false);
+    const float a = att[r];
+#pragma unroll
+    for (int col = 0; col < LAT; ++col) logits[r * (LAT + 1) + col] = a * y[col];
+    sync();
+    if (r < LAT) {
+      float s = 0.f;
+      for (int rr = 0; rr < K; ++rr) s += logits[rr * (LAT + 1) + r];
+      out[static_cast<int64_t>(cq) * LAT + r] = Num<T>::from_f(s);
+    }
+    sync();
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* latents, const void* pts, const void* queries,
+                   const void* ids, const void* w1, const void* w2, const void* b2,
+                   const void* w3, const void* b3, const void* wq, const void* bq,
+                   const void* wv, const void* bv, void* out, int c, int kn,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(decoder_tail_narrow_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(SMEM));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, decoder_tail_narrow_kernel<T>, THREADS_NARROW, SMEM)) != cudaSuccess)
+    return err;
+  const int blocks = min((c + GROUPS - 1) / GROUPS, max(per_sm, 1) * sms);
+  auto t = [](const void* p) { return static_cast<const T*>(p); };
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  decoder_tail_narrow_kernel<T><<<blocks, THREADS_NARROW, SMEM, stream>>>(
+      t(latents), f(pts), f(queries), static_cast<const int64_t*>(ids), t(w1), t(w2),
+      f(b2), t(w3), f(b3), t(wq), f(bq), t(wv), f(bv), static_cast<T*>(out), c, kn);
+  return cudaGetLastError();
+}
+
+}  // namespace narrow
+
 cudaError_t launch_f32(const void* latents, const void* pts, const void* queries,
                        const void* ids, const void* w1, const void* w2,
                        const void* b2, const void* w3, const void* b3,
                        const void* wq, const void* bq, const void* wv,
-                       const void* bv, void* out, int c, cudaStream_t stream) {
+                       const void* bv, void* out, int c, int kn, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<float>();
   cudaError_t err = cudaFuncSetAttribute(
       decoder_tail_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -415,14 +607,14 @@ cudaError_t launch_f32(const void* latents, const void* pts, const void* queries
   decoder_tail_kernel<float><<<c, THREADS, bytes, stream>>>(
       f(latents), f(pts), f(queries), static_cast<const int64_t*>(ids), f(w1),
       f(w2), f(b2), f(w3), f(b3), f(wq), f(bq), f(wv), f(bv),
-      static_cast<float*>(out));
+      static_cast<float*>(out), kn);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* latents, const void* pts, const void* queries,
                         const void* ids, const void* w1, const void* b2,
                         const void* b3, const void* bq, const void* bv,
-                        const void* wpack, void* out, int c, cudaStream_t stream) {
+                        const void* wpack, void* out, int c, int kn, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       decoder_tail_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(WG_SMEM));
@@ -437,12 +629,14 @@ cudaError_t launch_bf16(const void* latents, const void* pts, const void* querie
   decoder_tail_wgmma_kernel<<<min(pairs, sms), THREADS_WG, WG_SMEM, stream>>>(
       static_cast<const bf16*>(latents), f(pts), f(queries),
       static_cast<const int64_t*>(ids), static_cast<const bf16*>(w1), f(b2), f(b3),
-      f(bq), f(bv), static_cast<const unsigned char*>(wpack), static_cast<bf16*>(out), c);
+      f(bq), f(bv), static_cast<const unsigned char*>(wpack), static_cast<bf16*>(out), c, kn);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// latent 256 (PPSurf) or 32 (POCO), 64 heads, 1 <= k <= 64 neighbours a
+// query; a bf16 call at latent 256 needs the weight pack
 extern "C" int ppsurf_decoder_tail(const void* latents, const void* pts,
                                    const void* queries, const void* ids,
                                    const void* w1, const void* w2,
@@ -452,12 +646,20 @@ extern "C" int ppsurf_decoder_tail(const void* latents, const void* pts,
                                    const void* bv, const void* wpack, void* out,
                                    int c, int k, int latent, int heads,
                                    int is_bf16, void* stream) {
-  if (k != K || latent != LAT || heads != HEADS || c < 0 || (is_bf16 && !wpack))
+  if (k < 1 || k > K || (latent != LAT && latent != narrow::LAT) || heads != HEADS || c < 0 ||
+      (is_bf16 && latent == LAT && !wpack))
     return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
+  if (latent == narrow::LAT) {
+    if (is_bf16)
+      return narrow::launch<bf16>(latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv,
+                               bv, out, c, k, s);
+    return narrow::launch<float>(latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv, bv,
+                              out, c, k, s);
+  }
   if (is_bf16)
-    return launch_bf16(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, s);
+    return launch_bf16(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, k, s);
   return launch_f32(latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv, bv,
-                    out, c, s);
+                    out, c, k, s);
 }

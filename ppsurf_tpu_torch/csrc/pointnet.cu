@@ -8,9 +8,17 @@
 //   conv1 64 / conv2 128 (+BN+relu), conv3 256 (+BN), then attention
 //   pooling: a scalar fc_query logit per point, softmax over the P real
 //   points, fc_value (256) and the weighted sum in f32.
-// Design and bounds: see ppsurf_tpu_torch/ops/pointnet_att.py. A patch's
-// P <= 64 points are the 64 rows of every product; rows past P repeat
-// point 0: they never change a max and are masked out of the softmax.
+// Design and bounds: see ppsurf_tpu_torch/ops/pointnet_att.py. A patch of
+// P <= 256 points is ceil(P / 64) tiles of 64 rows, each tile the 64 rows
+// of every product; a tile's rows past P repeat the tile's first point:
+// they never change a max and are masked out of the softmax. K4 takes its
+// max across the tiles. K5 has a kernel for one tile (P <= 64) and one for
+// several (`head_wgmma_tiles_kernel`), which rounds as the plain version
+// does: it computes the logits of every tile first, takes their max over
+// the whole patch, then the exp, the sum and the division, and only then
+// the weighted sum of the values, tile by tile; a tile's conv1-conv3 run
+// again for it, except for the last tile, whose conv3 output is still in
+// shared memory.
 //
 // bf16 (`trunk_wgmma_kernel`, `head_wgmma_kernel`): one patch is one
 // `wgmma` m64 tile, and each consumer warpgroup owns whole patches, so the
@@ -55,9 +63,11 @@ constexpr size_t trunk_smem() {
   return sizeof(T) * ROWS * W;
 }
 
+constexpr int PMAX = 4 * ROWS;  // the most points a patch the kernels take
+
 template <typename T>
 constexpr size_t head_smem() {
-  return sizeof(T) * ROWS * W + sizeof(float) * (2 * ROWS + 8 * W);
+  return sizeof(T) * ROWS * W + sizeof(float) * (2 * PMAX + 8 * W);
 }
 
 // load rows [0, p) of a (p, width) patch, repeating row 0 into [p, 64)
@@ -82,20 +92,24 @@ trunk_kernel(const T* __restrict__ patches, const T* __restrict__ w0a,
   extern __shared__ __align__(16) unsigned char smem[];
   T* x = reinterpret_cast<T*>(smem);
   const int64_t c = blockIdx.x;
-  load_rows<T>(patches + c * p * 3, p, 3, x);
+  float m = -__int_as_float(0x7f800000);
+  for (int r0 = 0; r0 < p; r0 += ROWS) {
+    const int rows = min(ROWS, p - r0);  // this tile's real rows
+    load_rows<T>(patches + (c * p + r0) * 3, rows, 3, x);
 
-  block_dense<T, 64>(x, W, 3, w0a, aff + 0 * W, W, true, true, x, W);
-  block_dense<T, 64>(x, W, 64, w0b, aff + 3 * W, W, true, true, x, W);
-  for (int idx = threadIdx.x; idx < p * 64; idx += THREADS) {
-    const int r = idx >> 6;
-    b_out[(c * p + r) * 64 + (idx & 63)] = x[r * W + (idx & 63)];
+    block_dense<T, 64>(x, W, 3, w0a, aff + 0 * W, W, true, true, x, W);
+    block_dense<T, 64>(x, W, 64, w0b, aff + 3 * W, W, true, true, x, W);
+    for (int idx = threadIdx.x; idx < rows * 64; idx += THREADS) {
+      const int r = idx >> 6;
+      b_out[(c * p + r0 + r) * 64 + (idx & 63)] = x[r * W + (idx & 63)];
+    }
+    block_dense<T, 64>(x, W, 64, ws1, aff + 6 * W, W, true, true, x, W);
+    block_dense<T, 128>(x, W, 64, ws2, aff + 9 * W, W, true, true, x, W);
+    block_dense<T, 256>(x, W, 128, ws3, aff + 12 * W, W, true, true, x, W);
+
+    for (int r = 0; r < rows; ++r) m = fmaxf(m, Num<T>::to_f(x[r * W + threadIdx.x]));
+    __syncthreads();  // the next tile overwrites x
   }
-  block_dense<T, 64>(x, W, 64, ws1, aff + 6 * W, W, true, true, x, W);
-  block_dense<T, 128>(x, W, 64, ws2, aff + 9 * W, W, true, true, x, W);
-  block_dense<T, 256>(x, W, 128, ws3, aff + 12 * W, W, true, true, x, W);
-
-  float m = Num<T>::to_f(x[threadIdx.x]);
-  for (int r = 1; r < p; ++r) m = fmaxf(m, Num<T>::to_f(x[r * W + threadIdx.x]));
   pooled[c * W + threadIdx.x] = Num<T>::from_f(m);
 }
 
@@ -109,18 +123,26 @@ head_kernel(const T* __restrict__ x2, const T* __restrict__ wc1,
   extern __shared__ __align__(16) unsigned char smem[];
   T* x = reinterpret_cast<T*>(smem);
   float* logit = reinterpret_cast<float*>(x + ROWS * W);
-  float* att = logit + ROWS;
-  float* part = att + ROWS;
+  float* att = logit + PMAX;
+  float* part = att + PMAX;
   const int64_t c = blockIdx.x;
   const int tid = threadIdx.x;
-  load_rows<T>(x2 + c * p * 64, p, 64, x);
+  const int tiles = (p + ROWS - 1) / ROWS;
 
-  block_dense<T, 64>(x, W, 64, wc1, aff + 0 * W, W, true, true, x, W);
-  block_dense<T, 128>(x, W, 64, wc2, aff + 3 * W, W, true, true, x, W);
-  block_dense<T, 256>(x, W, 128, wc3, aff + 6 * W, W, true, false, x, W);
+  // conv1 64 / conv2 128 (+BN+relu), conv3 256 (+BN) of tile `tile` into x
+  auto convs = [&](int tile) {
+    const int r0 = tile * ROWS;
+    load_rows<T>(x2 + (c * p + r0) * 64, min(ROWS, p - r0), 64, x);
+    block_dense<T, 64>(x, W, 64, wc1, aff + 0 * W, W, true, true, x, W);
+    block_dense<T, 128>(x, W, 64, wc2, aff + 3 * W, W, true, true, x, W);
+    block_dense<T, 256>(x, W, 128, wc3, aff + 6 * W, W, true, false, x, W);
+  };
 
-  // fc_query: one scalar logit per point; warp w owns rows 8w..8w+7
-  {
+  // fc_query of every tile: one scalar logit per point; warp w owns rows
+  // 8w..8w+7 of a tile
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile) __syncthreads();  // the previous tile's x is read
+    convs(tile);
     const int lane = tid & 31;
     const int r0 = (tid >> 5) * 8;
     for (int i = 0; i < 8; ++i) {
@@ -131,48 +153,65 @@ head_kernel(const T* __restrict__ x2, const T* __restrict__ wc1,
         s = fmaf(Num<T>::to_f(row[lane * 8 + j]), Num<T>::to_f(wq[lane * 8 + j]), s);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) logit[r0 + i] = rnd<T>(rnd<T>(s) + bqv[0]);
+      if (lane == 0) logit[tile * ROWS + r0 + i] = rnd<T>(rnd<T>(s) + bqv[0]);
     }
   }
   __syncthreads();
 
-  // softmax over the p real points (warp 0): every step rounds to T, the
-  // sum accumulates in f32
+  // softmax over the p real points (warp 0, lane l holds points l + 32i):
+  // every step rounds to T, the sum accumulates in f32
   if (tid < 32) {
-    const int ra = tid, rb = tid + 32;
-    const float la = ra < p ? logit[ra] : -__int_as_float(0x7f800000);
-    const float lb = rb < p ? logit[rb] : -__int_as_float(0x7f800000);
-    float m = fmaxf(la, lb);
+    const float ninf = -__int_as_float(0x7f800000);
+    float m = ninf;
+#pragma unroll
+    for (int i = 0; i < PMAX / 32; ++i) {
+      const int r = tid + 32 * i;
+      m = fmaxf(m, r < p ? logit[r] : ninf);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const float ea = ra < p ? rnd<T>(expf(rnd<T>(la - m))) : 0.f;
-    const float eb = rb < p ? rnd<T>(expf(rnd<T>(lb - m))) : 0.f;
-    float s = ea + eb;
+    float e[PMAX / 32];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < PMAX / 32; ++i) {
+      const int r = tid + 32 * i;
+      e[i] = r < p ? rnd<T>(expf(rnd<T>(logit[r] - m))) : 0.f;
+      s += e[i];
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     s = rnd<T>(s);
-    att[ra] = rnd<T>(ea / s);
-    att[rb] = rnd<T>(eb / s);
+#pragma unroll
+    for (int i = 0; i < PMAX / 32; ++i) att[tid + 32 * i] = rnd<T>(e[i] / s);
   }
   __syncthreads();
 
-  // fc_value, weighted by att and summed over the points in f32
-  {
+  // fc_value, weighted by att and summed over the points in f32, the last
+  // tile first (its conv3 output is still in x)
+  const int wg = tid >> 5;
+  const int r0 = wg * 8;
+  const int c0 = (tid & 31) * 8;
+  float tot[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int tile = tiles - 1; tile >= 0; --tile) {
+    if (tile != tiles - 1) {
+      __syncthreads();  // the previous tile's x is read
+      convs(tile);
+    }
     float acc[8][W / 32];
     block_matmul<T, W>(x, W, W, wv, acc);
-    const int wg = tid >> 5;
-    const int r0 = wg * 8;
-    const int c0 = (tid & 31) * 8;
+    const float* a = att + tile * ROWS + r0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float b = bqv[W + c0 + j];
       float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s += att[r0 + i] * rnd<T>(rnd<T>(acc[i][j]) + b);
-      part[wg * W + c0 + j] = s;
+      for (int i = 0; i < 8; ++i) s += a[i] * rnd<T>(rnd<T>(acc[i][j]) + b);
+      tot[j] += s;
     }
   }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) part[wg * W + c0 + j] = tot[j];
   __syncthreads();
   float s = 0.f;
 #pragma unroll
@@ -212,9 +251,14 @@ static_assert(PRODUCER_REGS * WG_THREADS + CONSUMER_REGS * HEAD_WGS * WG_THREADS
               "the register file of an SM");
 constexpr int HEAD_ACT = 6 * TILE;   // a warpgroup's operands: x (2 tiles), y (4)
 constexpr int HEAD_FLOATS = 64 + 4 * W;  // logits, per-warp column sums
-constexpr size_t HEAD_SMEM = 1024  // alignment slack
-    + STAGES * SLICE + HEAD_WGS * (HEAD_ACT + HEAD_FLOATS * sizeof(float))
-    + 2 * STAGES * sizeof(uint64_t);
+// the tiled kernel's: logits, softmax weights, per-warp column sums,
+// fc_query partial dot products
+constexpr int TILES_FLOATS = 2 * PMAX + 4 * W + 2 * WG_THREADS;
+constexpr size_t head_smem_bytes(int floats) {
+  return 1024  // alignment slack
+         + STAGES * SLICE + HEAD_WGS * (HEAD_ACT + floats * sizeof(float)) +
+         2 * STAGES * sizeof(uint64_t);
+}
 
 using Ring = gm::Ring<STAGES, SLICE>;
 
@@ -322,92 +366,103 @@ trunk_wgmma_kernel(const bf16* __restrict__ patches, const bf16* __restrict__ w0
   const int cl = 2 * (l & 3);        // accumulator column offset in an n8 block
   const int r = t >> 1;              // conv0a: thread t computes 32 columns of row t / 2
   const int step = gridDim.x * TRUNK_WGS;
+  const int tiles = (p + 63) / 64;
 
-  // row r's point of this warpgroup's next patch, loaded a patch ahead
+  // row r's point of tile `tile` of this warpgroup's next patch, loaded a
+  // tile ahead; rows past p repeat the tile's first point
   int patch = blockIdx.x * TRUNK_WGS + wg;
   bf16 next[3];
-  auto load_point = [&](int at) {
-    const bf16* src = patches + (static_cast<int64_t>(at) * p + (r < p ? r : 0)) * 3;
+  auto load_point = [&](int at, int tile) {
+    const int row = 64 * tile + r;
+    const bf16* src = patches + (static_cast<int64_t>(at) * p + (row < p ? row : 64 * tile)) * 3;
 #pragma unroll
     for (int d = 0; d < 3; ++d) next[d] = src[d];
   };
-  if (patch < c) load_point(patch);
+  if (patch < c) load_point(patch, 0);
   gm::mbar_wait(bar, 0);  // the weights are in
 
 #pragma unroll 1
   for (; patch < c; patch += step) {
-    // conv0a (K=3) on the CUDA cores, f32 FMA in the plain product's order
-    {
-      const float x0 = __bfloat162float(next[0]);
-      const float x1 = __bfloat162float(next[1]);
-      const float x2 = __bfloat162float(next[2]);
-      if (patch + step < c) load_point(patch + step);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int col0 = 32 * (t & 1) + 8 * u;
-        uint4 packed;
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = col0 + 2 * e;
-          const float2 wa = ld2(w0a + col), wb = ld2(w0a + 64 + col), wc = ld2(w0a + 128 + col);
-          const float acc0 = fmaf(x2, wc.x, fmaf(x1, wb.x, fmaf(x0, wa.x, 0.f)));
-          const float acc1 = fmaf(x2, wc.y, fmaf(x1, wb.y, fmaf(x0, wa.y, 0.f)));
-          h[e] = __float22bfloat162_rn(relu2(bn_out(acc0, acc1, aff, col)));
-        }
-        *reinterpret_cast<uint4*>(act_a + gm::swizzle_offset(r, col0, 64)) = packed;
-      }
-    }
-    gm::fence_proxy_async();
-    sync();
-
-    // conv0b 64 -> 64 (a -> b), then b's rows < p to global memory
-    {
-      float acc[32];
-      gm::mma_ktile<64>(acc, a_addr, w_addr);
-      store_bn_relu<64>(acc, aff + 3 * W, act_b, 0, r0, cl);
-    }
-    gm::fence_proxy_async();
-    sync();
-    uint4* dst = reinterpret_cast<uint4*>(b_out + static_cast<int64_t>(patch) * p * 64);
-    for (int i = t; i < p * 8; i += WG_THREADS)
-      dst[i] = *reinterpret_cast<const uint4*>(act_b + gm::swizzle_offset(i >> 3, 8 * (i & 7), 64));
-
-    // stn conv1 64 -> 64 (b -> a), conv2 64 -> 128 (a -> b)
-    {
-      float acc[32];
-      gm::mma_ktile<64>(acc, b_addr, w_addr + TILE);
-      store_bn_relu<64>(acc, aff + 6 * W, act_a, 0, r0, cl);
-    }
-    gm::fence_proxy_async();
-    sync();
-    {
-      float acc[64];
-      gm::mma_ktile<128>(acc, a_addr, w_addr + 2 * TILE);
-      store_bn_relu<128>(acc, aff + 9 * W, act_b, 0, r0, cl);
-    }
-    gm::fence_proxy_async();
-    sync();
-
-    // stn conv3 128 -> 256 (b), +BN+relu, and the max over the 64 rows
-    // (rows >= p repeat row 0) straight from the fragments
 #pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      float total[64];
+    for (int tile = 0; tile < tiles; ++tile) {
+      // conv0a (K=3) on the CUDA cores, f32 FMA in the plain product's order
+      {
+        const float x0 = __bfloat162float(next[0]);
+        const float x1 = __bfloat162float(next[1]);
+        const float x2 = __bfloat162float(next[2]);
+        if (tile + 1 < tiles) load_point(patch, tile + 1);
+        else if (patch + step < c) load_point(patch + step, 0);
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        float part[64];
-        gm::mma_ktile<128>(part, b_addr + k * TILE, w_addr + (4 + 2 * (2 * half + k)) * TILE);
-        gm::add_partial(total, part, k);
+        for (int u = 0; u < 4; ++u) {
+          const int col0 = 32 * (t & 1) + 8 * u;
+          uint4 packed;
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = col0 + 2 * e;
+            const float2 wa = ld2(w0a + col), wb = ld2(w0a + 64 + col), wc = ld2(w0a + 128 + col);
+            const float acc0 = fmaf(x2, wc.x, fmaf(x1, wb.x, fmaf(x0, wa.x, 0.f)));
+            const float acc1 = fmaf(x2, wc.y, fmaf(x1, wb.y, fmaf(x0, wa.y, 0.f)));
+            h[e] = __float22bfloat162_rn(relu2(bn_out(acc0, acc1, aff, col)));
+          }
+          *reinterpret_cast<uint4*>(act_a + gm::swizzle_offset(r, col0, 64)) = packed;
+        }
       }
+      gm::fence_proxy_async();
+      sync();
+
+      // conv0b 64 -> 64 (a -> b), then b's rows < p to global memory
+      {
+        float acc[32];
+        gm::mma_ktile<64>(acc, a_addr, w_addr);
+        store_bn_relu<64>(acc, aff + 3 * W, act_b, 0, r0, cl);
+      }
+      gm::fence_proxy_async();
+      sync();
+      uint4* dst = reinterpret_cast<uint4*>(b_out + (static_cast<int64_t>(patch) * p + 64 * tile) * 64);
+      for (int i = t; i < min(64, p - 64 * tile) * 8; i += WG_THREADS)
+        dst[i] = *reinterpret_cast<const uint4*>(act_b + gm::swizzle_offset(i >> 3, 8 * (i & 7), 64));
+
+      // stn conv1 64 -> 64 (b -> a), conv2 64 -> 128 (a -> b)
+      {
+        float acc[32];
+        gm::mma_ktile<64>(acc, b_addr, w_addr + TILE);
+        store_bn_relu<64>(acc, aff + 6 * W, act_a, 0, r0, cl);
+      }
+      gm::fence_proxy_async();
+      sync();
+      {
+        float acc[64];
+        gm::mma_ktile<128>(acc, a_addr, w_addr + 2 * TILE);
+        store_bn_relu<128>(acc, aff + 9 * W, act_b, 0, r0, cl);
+      }
+      gm::fence_proxy_async();
+      sync();
+
+      // stn conv3 128 -> 256 (b), +BN+relu, and the max over the tile's 64
+      // rows (rows >= p repeat a real row) straight from the fragments, then
+      // over the tiles
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float total[64];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = 128 * half + 8 * j + cl;
-        const float2 y0 = relu2(bn_out(total[4 * j], total[4 * j + 1], aff + 12 * W, col));
-        const float2 y1 = relu2(bn_out(total[4 * j + 2], total[4 * j + 3], aff + 12 * W, col));
-        const float2 m = lane_reduce(make_float2(fmaxf(y0.x, y1.x), fmaxf(y0.y, y1.y)),
-                                     [](float a, float b) { return fmaxf(a, b); });
-        if (l < 4) *reinterpret_cast<float2*>(colmax + w * W + col) = m;
+        for (int k = 0; k < 2; ++k) {
+          float part[64];
+          gm::mma_ktile<128>(part, b_addr + k * TILE, w_addr + (4 + 2 * (2 * half + k)) * TILE);
+          gm::add_partial(total, part, k);
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * half + 8 * j + cl;
+          const float2 y0 = relu2(bn_out(total[4 * j], total[4 * j + 1], aff + 12 * W, col));
+          const float2 y1 = relu2(bn_out(total[4 * j + 2], total[4 * j + 3], aff + 12 * W, col));
+          const float2 m = lane_reduce(make_float2(fmaxf(y0.x, y1.x), fmaxf(y0.y, y1.y)),
+                                       [](float a, float b) { return fmaxf(a, b); });
+          if (l < 4) {
+            float2* cm = reinterpret_cast<float2*>(colmax + w * W + col);
+            *cm = tile == 0 ? m : make_float2(fmaxf(cm->x, m.x), fmaxf(cm->y, m.y));
+          }
+        }
       }
     }
     sync();
@@ -603,6 +658,244 @@ head_wgmma_kernel(const bf16* __restrict__ x2, const bf16* __restrict__ wq,
   }
 }
 
+// K5 for P in (64, 256]: a patch is ceil(P / 64) tiles. The logits of every
+// tile come first (conv1-conv3 and fc_query, tile by tile), then the
+// softmax over all P rows, then the weighted values from the last tile
+// back to the first, conv1-conv3 running again for every tile but the
+// last, whose conv3 output is still in act_y. The producer streams the
+// slices in that order. It takes one tile too, but `head_wgmma_kernel`,
+// which keeps a patch's softmax in registers, is faster there.
+__global__ void __launch_bounds__(HEAD_THREADS, 1)
+head_wgmma_tiles_kernel(const bf16* __restrict__ x2, const bf16* __restrict__ wq,
+                  const float* __restrict__ aff, const float* __restrict__ bqv,
+                  const unsigned char* __restrict__ pack, bf16* __restrict__ out,
+                  int c, int p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* slots = gm::align1024(smem_raw);
+  unsigned char* acts = slots + STAGES * SLICE;
+  float* floats = reinterpret_cast<float*>(acts + HEAD_WGS * HEAD_ACT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(floats + HEAD_WGS * TILES_FLOATS);
+  Ring ring{slots, bars, bars + STAGES};
+  if (threadIdx.x == 0) ring.init(HEAD_WGS * WG_THREADS);
+  __syncthreads();
+  const int rounds = (c + HEAD_WGS - 1) / HEAD_WGS;
+  const int wg = threadIdx.x / WG_THREADS;
+
+  const int tiles = (p + 63) / 64;
+
+  if (wg == HEAD_WGS) {
+    // producer: one thread copies the slices of every round of HEAD_WGS
+    // patches in the order the consumers take them: conv1-conv3 (slices
+    // 0-5) of every tile, fc_value (6-13) of the last tile, then all 14 of
+    // every other tile
+    gm::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == HEAD_WGS * WG_THREADS) {
+      auto produce = [&](int from, int to) {
+        for (int i = from; i < to; ++i) {
+          if (i == 0) ring.produce(pack, TILE);
+          else ring.produce(pack + TILE + (i - 1) * SLICE, SLICE);
+        }
+      };
+      for (int round = blockIdx.x; round < rounds; round += gridDim.x) {
+        for (int tile = 0; tile < tiles; ++tile) produce(0, 6);
+        produce(6, HEAD_SLICES);
+        for (int tile = 1; tile < tiles; ++tile) produce(0, HEAD_SLICES);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup `wg`: thread t, warp w, lane l. Its operands: x2
+  // and then conv2's output in act_x, conv1's and then conv3's in act_y.
+  gm::setmaxnreg_inc<CONSUMER_REGS>();
+  const int t = threadIdx.x % WG_THREADS;
+  const int w = t >> 5;
+  const int l = t & 31;
+  unsigned char* act_x = acts + wg * HEAD_ACT;
+  unsigned char* act_y = act_x + 2 * TILE;
+  const uint32_t x_addr = gm::smem_u32(act_x);
+  const uint32_t y_addr = gm::smem_u32(act_y);
+  float* logits = floats + wg * TILES_FLOATS;
+  float* att = logits + PMAX;
+  float* colsum = att + PMAX;  // per-warp column sums
+  float* qpart = colsum + 4 * W;  // this thread's fc_query dot products over conv3's first half
+  auto sync = [wg] { gm::named_barrier(1 + wg, WG_THREADS); };
+  const int r0 = 16 * w + (l >> 2);  // accumulator rows r0 and r0 + 8
+  const int cl = 2 * (l & 3);        // accumulator column offset in an n8 block
+  const float bq = bqv[0];
+
+#pragma unroll 1
+  for (int round = blockIdx.x; round < rounds; round += gridDim.x) {
+    // the second patch of an odd last round repeats the last one, unstored
+    const int patch = min(HEAD_WGS * round + wg, c - 1);
+    const bool store = HEAD_WGS * round + wg < c;
+
+    // conv1-conv3 of tile `tile` (x2's rows, rows >= p repeating the
+    // tile's first one): conv3's output to act_y and fc_query's logits of
+    // the tile's rows (the second visit of a tile writes them again). The
+    // loops run on p, not on a tile count: one register fewer, which keeps
+    // this kernel free of spills
+    auto convs = [&](int tile) {
+      for (int i = t; i < 64 * 8; i += WG_THREADS) {
+        const int r = 64 * tile + (i >> 3);
+        const int64_t row = static_cast<int64_t>(patch) * p + (r < p ? r : 64 * tile);
+        *reinterpret_cast<uint4*>(act_x + gm::swizzle_offset(i >> 3, 8 * (i & 7), 64)) =
+            *reinterpret_cast<const uint4*>(x2 + row * 64 + 8 * (i & 7));
+      }
+      gm::fence_proxy_async();
+      sync();
+
+      // conv1 64 -> 64 (x -> y), conv2 64 -> 128 (y -> x), +BN+relu
+      {
+        float acc[32];
+        gm::mma_ktile<64>(acc, x_addr, ring.wait());
+        ring.release();
+        store_bn_relu<64>(acc, aff, act_y, 0, r0, cl);
+      }
+      gm::fence_proxy_async();
+      sync();
+      {
+        float acc[64];
+        gm::mma_ktile<128>(acc, y_addr, ring.wait());
+        ring.release();
+        store_bn_relu<128>(acc, aff + 3 * W, act_x, 0, r0, cl);
+      }
+      gm::fence_proxy_async();
+      sync();
+
+      // conv3 128 -> 256 (x -> y), +BN; fc_query's dot product of rows r0
+      // and r0 + 8 over this thread's columns of conv3's bf16 output, kept
+      // in shared memory between the halves (not in registers across the
+      // second half's products)
+      float q0, q1;
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float total[64];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float part[64];
+          gm::mma_ktile<128>(part, x_addr + k * TILE, ring.wait());
+          ring.release();
+          gm::add_partial(total, part, k);
+        }
+        q0 = half ? qpart[2 * t] : 0.f;
+        q1 = half ? qpart[2 * t + 1] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * half + 8 * j + cl;
+          const float2 wqc = ld2(wq + col);
+          const float2 y0 = bn_out(total[4 * j], total[4 * j + 1], aff + 6 * W, col);
+          const float2 y1 = bn_out(total[4 * j + 2], total[4 * j + 3], aff + 6 * W, col);
+          q0 = fmaf(y0.y, wqc.y, fmaf(y0.x, wqc.x, q0));
+          q1 = fmaf(y1.y, wqc.y, fmaf(y1.x, wqc.x, q1));
+          *reinterpret_cast<__nv_bfloat162*>(act_y + gm::swizzle_offset(r0, col, 64)) =
+              __float22bfloat162_rn(y0);
+          *reinterpret_cast<__nv_bfloat162*>(act_y + gm::swizzle_offset(r0 + 8, col, 64)) =
+              __float22bfloat162_rn(y1);
+        }
+        if (!half) {
+          qpart[2 * t] = q0;
+          qpart[2 * t + 1] = q1;
+        }
+      }
+      // the four lanes l % 4 of a row hold all its columns
+      q0 += __shfl_xor_sync(FULL, q0, 1);
+      q0 += __shfl_xor_sync(FULL, q0, 2);
+      q1 += __shfl_xor_sync(FULL, q1, 1);
+      q1 += __shfl_xor_sync(FULL, q1, 2);
+      if ((l & 3) == 0) {
+        logits[64 * tile + r0] = rnd<bf16>(rnd<bf16>(q0) + bq);
+        logits[64 * tile + r0 + 8] = rnd<bf16>(rnd<bf16>(q1) + bq);
+      }
+      gm::fence_proxy_async();
+      sync();
+    };
+
+#pragma unroll 1
+    for (int tile = 0; 64 * tile < p; ++tile) convs(tile);
+
+    // softmax over the p real rows of all tiles, in every warp: lane l
+    // holds rows l + 32i; every step rounds to bf16, the sum accumulates
+    // in f32; warp 0 writes the weights
+    {
+      const float ninf = -__int_as_float(0x7f800000);
+      float m = ninf;
+#pragma unroll
+      for (int i = 0; i < PMAX / 32; ++i) {
+        const int r = l + 32 * i;
+        m = fmaxf(m, r < p ? logits[r] : ninf);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < PMAX / 32; ++i) {
+        const int r = l + 32 * i;
+        s += r < p ? rnd<bf16>(expf(rnd<bf16>(logits[r] - m))) : 0.f;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+      s = rnd<bf16>(s);
+      if (w == 0) {
+#pragma unroll
+        for (int i = 0; i < PMAX / 32; ++i) {
+          const int r = l + 32 * i;
+          const float e = r < p ? rnd<bf16>(expf(rnd<bf16>(logits[r] - m))) : 0.f;
+          att[r] = rnd<bf16>(e / s);
+        }
+      }
+    }
+    sync();
+
+    // fc_value 256 -> 256 (y), each rounded value weighted by its row's
+    // softmax weight and summed over the rows in f32: over rows r0, r0 + 8,
+    // then the 8 lanes of a column, then the tiles (the last one first:
+    // its conv3 output is still in act_y), then the 4 warps
+#pragma unroll 1
+    for (int tile = (p - 1) >> 6; tile >= 0; --tile) {
+      if (64 * tile + 64 < p) convs(tile);
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float total[64];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float part[64];
+          gm::mma_ktile<128>(part, y_addr + k * TILE, ring.wait());
+          ring.release();
+          gm::add_partial(total, part, k);
+        }
+        // the softmax weights of rows r0 and r0 + 8, read after the products
+        const float a0 = att[64 * tile + r0], a1 = att[64 * tile + r0 + 8];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * half + 8 * j + cl;
+          const float2 b = ld2(bqv + W + col);
+          const float2 y0 = value_out(total[4 * j], total[4 * j + 1], b);
+          const float2 y1 = value_out(total[4 * j + 2], total[4 * j + 3], b);
+          const float2 sum = lane_reduce(
+              make_float2(__fadd_rn(__fmul_rn(a0, y0.x), __fmul_rn(a1, y1.x)),
+                          __fadd_rn(__fmul_rn(a0, y0.y), __fmul_rn(a1, y1.y))),
+              [](float a, float b) { return a + b; });
+          if (l < 4) {
+            float2* cs = reinterpret_cast<float2*>(colsum + w * W + col);
+            *cs = 64 * tile + 64 >= p ? sum : make_float2(cs->x + sum.x, cs->y + sum.y);
+          }
+        }
+      }
+    }
+    sync();
+    if (store) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = t + WG_THREADS * h;
+        const float s = colsum[col] + colsum[W + col] + colsum[2 * W + col] + colsum[3 * W + col];
+        out[static_cast<int64_t>(patch) * W + col] = __float2bfloat16_rn(s);
+      }
+    }
+    sync();
+  }
+}
+
 cudaError_t sm_count(int* sms) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -668,14 +961,16 @@ cudaError_t launch_trunk_bf16(const void* patches, const void* w0a, const void* 
 cudaError_t launch_head_bf16(const void* x2, const void* wq, const void* aff,
                              const void* bqv, const void* pack, void* out, int c, int p,
                              cudaStream_t stream) {
+  const bool tiles = p > 64;
+  const auto kernel = tiles ? head_wgmma_tiles_kernel : head_wgmma_kernel;
+  const size_t smem = head_smem_bytes(tiles ? TILES_FLOATS : HEAD_FLOATS);
   cudaError_t err = cudaFuncSetAttribute(
-      head_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(HEAD_SMEM));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   const int blocks = min((c + HEAD_WGS - 1) / HEAD_WGS, sms);
-  head_wgmma_kernel<<<blocks, HEAD_THREADS, HEAD_SMEM, stream>>>(
+  kernel<<<blocks, HEAD_THREADS, smem, stream>>>(
       static_cast<const bf16*>(x2), static_cast<const bf16*>(wq),
       static_cast<const float*>(aff), static_cast<const float*>(bqv),
       static_cast<const unsigned char*>(pack), static_cast<bf16*>(out), c, p);
@@ -690,7 +985,7 @@ extern "C" int ppsurf_pointnet_trunk(const void* patches, const void* w0a,
                                      const void* aff, const void* pack,
                                      void* b_out, void* pooled, int c, int p,
                                      int is_bf16, void* stream) {
-  if (p < 1 || p > ROWS || c < 0 || (is_bf16 && !pack))
+  if (p < 1 || p > PMAX || c < 0 || (is_bf16 && !pack))
     return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
@@ -705,7 +1000,7 @@ extern "C" int ppsurf_pointnet_head(const void* x2, const void* wc1,
                                     const void* aff, const void* bqv,
                                     const void* pack, void* out, int c, int p,
                                     int is_bf16, void* stream) {
-  if (p < 1 || p > ROWS || c < 0 || (is_bf16 && !pack))
+  if (p < 1 || p > PMAX || c < 0 || (is_bf16 && !pack))
     return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);

@@ -1,8 +1,10 @@
 """FKAConv point-convolution encoder, channels-last.
 
 Port of `ppsurf_tpu/models/fkaconv.py` (reference `source/base/nn.py:420-652`)
-in its PPSurf configuration: SiLU kernel-net activation, the x4d bug fixed,
-segmentation head. Eval only: the learned normalization radius is a buffer.
+with the segmentation head, in both configurations: PPSurf's (SiLU
+kernel-net activation, the x4d bug fixed) and POCO's (ReLU, the bug kept:
+the global-max bottleneck's output is discarded, `fkaconv.py:251-256`).
+Eval only: the learned normalization radius is a buffer.
 The gathers and the two contractions per layer are plain PyTorch, as the
 JAX package leaves them to XLA.
 """
@@ -131,14 +133,17 @@ class ResidualBlock(nn.Module):
 
 class FKAConvNetwork(nn.Module):
     """Residual FKAConv U-Net with the per-point latent head
-    (reference `nn.py:453-554`, segmentation=True, x4d bug fixed)."""
+    (reference `nn.py:453-554`, segmentation=True). `x4d_bug_fixed=False`
+    keeps the reference POCO quirk (`nn.py:530-534`): x4d = x4, while cv5
+    and bn5 stay in the weights."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 256,
                  hidden: int = 64, activation: typing.Callable = F.silu,
-                 dtype: torch.dtype = torch.float32):
+                 x4d_bug_fixed: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         hd = hidden
         self.dtype = dtype
+        self.x4d_bug_fixed = x4d_bug_fixed
 
         def res(cin, cout):
             return ResidualBlock(cin, cout, 16, activation, dtype=dtype)
@@ -183,9 +188,13 @@ class FKAConvNetwork(nn.Module):
         x4 = self.resnetb40(x3, s3, s4, data["ids34"])
         x4 = self.resnetb41(x4, s4, s4, data["ids44"])
 
-        # global max in f32, then the bottleneck (x4d bug fixed)
-        x5 = x4.float().amax(dim=1, keepdim=True).expand_as(x4).to(x4.dtype)
-        x4d = relu(self.bn5(self.cv5(torch.cat([x4, x5], dim=-1))))
+        # global max in f32, then the bottleneck; the reference POCO
+        # discards it (`nn.py:533-534`)
+        if self.x4d_bug_fixed:
+            x5 = x4.float().amax(dim=1, keepdim=True).expand_as(x4).to(x4.dtype)
+            x4d = relu(self.bn5(self.cv5(torch.cat([x4, x5], dim=-1))))
+        else:
+            x4d = x4
 
         x3d = interpolate(x4d, data["ids43"])
         x3d = relu(self.bn3d(self.cv3d(torch.cat([x3d, x3], dim=-1))))

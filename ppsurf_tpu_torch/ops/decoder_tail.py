@@ -3,15 +3,21 @@
 Replaces the TPU kernel `_decoder_tail_kernel`
 (`ppsurf_tpu/ops/decoder_pallas.py:49`, launched at `:113` by
 `decoder_tail_pallas`, called from `ppsurf_tpu/recon/field.py:86-109`).
-For each query it computes, over its k=64 neighbours,
+For each query it computes, over its k <= 64 neighbours (64 but for
+clouds of fewer points),
 
     h = relu(x + rel @ W1)  ->  fc2+relu  ->  fc3+relu
-    -> fc_query (64 heads), fc_value (256)
+    -> fc_query (64 heads), fc_value (L)
     -> softmax over k per head, mean over heads
     -> attention-weighted sum of the values (f32)    = (L,) pre-fc8
 
 where x holds the neighbours' projected latents (fc1's latent rows and
 bias folded in per shape, `FieldEvaluator`) and rel = query - neighbour.
+It is built for two widths: L=256 (PPSurf) and L=32 (POCO, whose tail the
+JAX package leaves to XLA, `ppsurf_tpu/recon/field.py:589-596`), 64 heads
+each. The kernels take a query's rows as 64 neighbours; for k < 64 the
+rows past k repeat neighbour 0, count as -inf logits in the per-head
+softmax and get weight 0.
 
 The CUDA kernel (`csrc/decoder_tail.cu`) takes the (N, L) latent table,
 the cloud and the kNN ids and gathers inside: the (C*k, L) gathered tensor
@@ -40,6 +46,13 @@ while its bytes (latent table, ids, output) move in well under 0.1 ms.
 - f32: one block of 256 threads a query, each thread an 8 x 8 register
   tile of every product on the CUDA cores (f32 FMA, 67 TFLOP/s peak).
   TF32 tensor cores would miss the f32 limit the field is held to.
+- L=32, f32 and bf16 (`decoder_tail_narrow_kernel`): 64 rows x 5 216
+  multiply-adds a query, 33 GFLOP at C=50 048, 0.5 ms at the f32 FMA
+  peak; the gathered latents are 0.4 GB in f32, most of them served by
+  the L2. One thread a neighbour row holds the row's 32 activations in
+  registers and runs every product as f32 FMA against weights kept once
+  a block in shared memory (broadcast reads); four queries a block, a
+  named barrier each, persistent blocks.
 
 Rounding follows the plain version below and `decoder_pallas.py:22-26,
 38-46, 72-80`: every product accumulates in f32 and rounds to the compute
@@ -57,6 +70,13 @@ import torch
 from ppsurf_tpu_torch.models.norm import dense, softmax
 from ppsurf_tpu_torch.ops import kernels
 from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, weight_tile
+
+
+# (latent width, heads) of the builds: the bf16 one at WGMMA_SHAPE runs on
+# the tensor cores and needs `wpack`
+SHAPES = ((256, 64), (32, 64))
+WGMMA_SHAPE = (256, 64)
+KMAX = 64  # neighbours a query
 
 
 @dataclasses.dataclass
@@ -112,7 +132,7 @@ def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
         wq=w(projection.fc_query.kernel), bq=b(projection.fc_query.bias),
         wv=w(projection.fc_value.kernel), bv=b(projection.fc_value.bias),
     )
-    if dt == torch.bfloat16 and (lat, t.heads) == (256, 64):
+    if dt == torch.bfloat16 and (lat, t.heads) == WGMMA_SHAPE:
         t.wpack = pack_wgmma_weights(t.w2, t.w3, t.wq, t.wv)
     return t
 
@@ -137,7 +157,8 @@ def decoder_tail_plain(latents: torch.Tensor, pts: torch.Tensor,
 def decoder_tail(latents: torch.Tensor, pts: torch.Tensor, queries: torch.Tensor,
                  ids: torch.Tensor, t: DecoderTables) -> torch.Tensor:
     """latents (N, L) projected, compute dtype; pts (N, 3) f32; queries
-    (C, 3) f32; ids (C, k) int64 -> (C, L) attention-pooled features.
+    (C, 3) f32; ids (C, k) int64, 1 <= k <= 64 -> (C, L) attention-pooled
+    features.
 
     CPU tensors take the plain version; CUDA tensors launch K3."""
     if latents.device.type == "cpu":
@@ -154,18 +175,19 @@ def decoder_tail(latents: torch.Tensor, pts: torch.Tensor, queries: torch.Tensor
          "wv": t.dt, "b2": torch.float32, "b3": torch.float32,
          "bq": torch.float32, "bv": torch.float32},
     )
-    if (k, lat, t.heads) != (64, 256, 64):
+    if not 1 <= k <= KMAX or (lat, t.heads) not in SHAPES:
         raise ValueError(
-            f"decoder_tail kernel is built for k=64, L=256, 64 heads; got "
-            f"k={k}, L={lat}, heads={t.heads}"
+            f"decoder_tail kernel is built for 1 <= k <= {KMAX} and (L, heads) in "
+            f"{SHAPES}; got k={k}, L={lat}, heads={t.heads}"
         )
-    if t.dt == torch.bfloat16 and (t.wpack is None or not t.wpack.is_cuda):
+    if (t.dt == torch.bfloat16 and (lat, t.heads) == WGMMA_SHAPE
+            and (t.wpack is None or not t.wpack.is_cuda)):
         raise ValueError("decoder_tail: bf16 tables need `wpack` on the card "
                          "(made by decoder_tables)")
     out = torch.empty((c, lat), dtype=t.dt, device=latents.device)
     if c:
         kernels.launch(
-            "decoder_tail", "ppsurf_decoder_tail",
+            "decoder_tail" if lat == 256 else "decoder_tail_l32", "ppsurf_decoder_tail",
             *(kernels.ptr(a) for a in (
                 latents, pts, queries, ids, t.w1, t.w2, t.b2, t.w3, t.b3,
                 t.wq, t.bq, t.wv, t.bv, t.wpack, out)),

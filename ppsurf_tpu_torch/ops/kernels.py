@@ -38,10 +38,14 @@ EXTRACT_VARIANTS = ("noop", "elementwise", "sum_only", "min_only", "min_argmin",
 
 # kernel name -> launches since the last reset_launches(). K1 counts under
 # "knn" for k <= 128 and "knn_k192" for 128 < k <= 256, the build the
-# candidate refinement runs at kc=192.
+# candidate refinement runs at kc=192; K3 under "decoder_tail" at latent
+# 256 and "decoder_tail_l32" at latent 32 (POCO); K4 and K5 under
+# "pointnet_trunk"/"pointnet_head" for patches of one 64-row tile and
+# "..._wide" for P in (64, 256].
 LAUNCHES: typing.Dict[str, int] = {
-    "knn": 0, "knn_k192": 0, "decoder_tail": 0, "pointnet_trunk": 0,
-    "pointnet_head": 0, "topk_rows": 0,
+    "knn": 0, "knn_k192": 0, "decoder_tail": 0, "decoder_tail_l32": 0,
+    "pointnet_trunk": 0, "pointnet_head": 0, "pointnet_trunk_wide": 0,
+    "pointnet_head_wide": 0, "topk_rows": 0,
     **{f"extract_{v}": 0 for v in EXTRACT_VARIANTS},
 }
 

@@ -18,10 +18,21 @@ Eval BatchNorm is folded into (g, c) rows, and a dense output is rounded
 to the compute dtype BEFORE the f32 affine, as in
 `pointnet_pallas.py:25-29, 41-53`.
 
-The CUDA kernels (`csrc/pointnet.cu`) take a patch's P=50 points as the
-64 rows of every product: rows 50..63 repeat point 0, which leaves the max
-unchanged and is masked out of the softmax (the TPU's padding of P to 56,
-a Mosaic tiling constraint, is gone).
+The CUDA kernels (`csrc/pointnet.cu`) take a patch of P <= 256 points as
+ceil(P/64) tiles of 64 rows, each the 64 rows of every product: a tile's
+rows past P repeat its first point, which leaves the max unchanged and is
+masked out of the softmax (the TPU's padding of P to 56, a Mosaic tiling
+constraint, and its `p_real` mask, `pointnet_pallas.py:90-95`, become
+this). P=50 is one tile; the 100NN and 200NN configurations take two and
+four. K4 takes its max across the tiles. K5 must round as the plain
+version does, so for P > 64 (`head_wgmma_tiles_kernel` in bf16) it
+computes the logits of every tile first, takes their max over the whole
+patch, then the exp, the sum and the division, and only then weights the
+values tile by tile; conv1-conv3 of every tile but the last run twice
+(about 40% more work). An online softmax, rescaling a running sum tile
+by tile, would round differently in bf16. For one tile the bf16 K5 keeps
+its own kernel, which holds the softmax in registers: the tiled kernel
+read 3.8 ms there against 2.8 ms (PERF.md, Findings).
 
 What bounds them on an H100: operations. Per patch K4 is about 4.9 MFLOP
 and K5 about 11.1 MFLOP, 0.25 and 0.56 TFLOP per 50 048-query chunk —
@@ -68,6 +79,7 @@ from ppsurf_tpu_torch.ops import kernels
 from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, weight_tile
 
 WIDTH = 256  # row width of the affine tables (widest layer)
+PMAX = 256  # the most points a patch the kernels take (four 64-row tiles)
 # (in, out) of conv0a, conv0b, stn conv1..3, then conv1..3, fc_query and
 # fc_value: the PPSurf widths the kernels are built for
 KERNEL_SHAPES = [(3, 64), (64, 64), (64, 64), (64, 128), (128, WIDTH),
@@ -226,7 +238,7 @@ def pointnet_trunk(patches: torch.Tensor, t: PointNetTables):
     pooled = torch.empty((c, WIDTH), dtype=t.dt, device=patches.device)
     if c:
         kernels.launch(
-            "pointnet_trunk", "ppsurf_pointnet_trunk",
+            "pointnet_trunk" if p <= 64 else "pointnet_trunk_wide", "ppsurf_pointnet_trunk",
             *(kernels.ptr(a) for a in (patches, *t.trunk_w, t.trunk_aff, t.trunk_pack,
                                        b, pooled)),
             c, p, kernels.dtype_code(t.dt),
@@ -244,7 +256,7 @@ def pointnet_head(x2: torch.Tensor, t: PointNetTables) -> torch.Tensor:
     out = torch.empty((c, WIDTH), dtype=t.dt, device=x2.device)
     if c:
         kernels.launch(
-            "pointnet_head", "ppsurf_pointnet_head",
+            "pointnet_head" if p <= 64 else "pointnet_head_wide", "ppsurf_pointnet_head",
             *(kernels.ptr(a) for a in (x2, *t.head_w, t.head_aff, t.bqv, t.head_pack,
                                        out)),
             c, p, kernels.dtype_code(t.dt),
@@ -258,10 +270,10 @@ def _shapes(t: PointNetTables):
 
 def _check(t: PointNetTables, p: int, name: str, data: typing.Dict[str, torch.Tensor],
            pack: typing.Optional[torch.Tensor]):
-    if _shapes(t) != KERNEL_SHAPES or not 1 <= p <= 64:
+    if _shapes(t) != KERNEL_SHAPES or not 1 <= p <= PMAX:
         raise ValueError(
             f"{name} kernel is built for the PPSurf widths (latent 256) and "
-            f"P <= 64; got P={p}, weights {_shapes(t)}"
+            f"P <= {PMAX}; got P={p}, weights {_shapes(t)}"
         )
     tensors = dict(data)
     tensors.update({f"w{i}": w for i, w in enumerate(t.trunk_w + t.head_w)})

@@ -1,65 +1,24 @@
 """Reconstruct one point cloud file into a mesh.
 
-    python -m ppsurf_tpu_torch.rec <cloud.{ply,xyz,npy}> <out_dir>
-        [--weights W.npz] [--resolution N] [--device cuda|cpu]
+    python -m ppsurf_tpu_torch.rec <cloud.{ply,xyz,npy,...}> <out_dir>
+        [-c config.yaml ...] [--dotted.key value ...] [--device cuda|cpu]
 
-The cloud is normalized into the unit cube (with the model's padding),
+The front of `python -m ppsurf_tpu_torch.cli rec` (see `cli.py`): the
+cloud is normalized into the unit cube (with the model's padding),
 reconstructed, and the mesh is written in the input's coordinates to
-`<out_dir>/<name>.ply` (as `ppsurf_tpu/recon/predict.py:145-158`). The
-network computes in bfloat16 on the card and in float32 on the CPU, as the
-JAX package picks its dtype from its platform (`ppsurf_tpu/cli.py:127-136`).
+`<out_dir>/<base>/<base>.ply`, the base name keeping its extension, as the
+JAX package writes it (`ppsurf_tpu/recon/predict.py:132-136`).
 """
 from __future__ import annotations
 
-import argparse
-import os
 import sys
 import typing
 
-import numpy as np
-import torch
-
-from ppsurf_tpu_torch.device import resolve_device
-from ppsurf_tpu_torch.io.ply import Mesh
-from ppsurf_tpu_torch.io.point_cloud import load_pts, pre_process_pts
-from ppsurf_tpu_torch.recon.predict import DEFAULT_WEIGHTS, Predictor
-from ppsurf_tpu_torch.train.model import ppsurf_spec
-from ppsurf_tpu_torch.utils import math3d
+from ppsurf_tpu_torch import cli
 
 
 def main(argv: typing.Optional[typing.List[str]] = None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m ppsurf_tpu_torch.rec",
-                                 description=__doc__.split("\n")[0])
-    ap.add_argument("cloud")
-    ap.add_argument("out_dir")
-    ap.add_argument("--weights", default=DEFAULT_WEIGHTS)
-    ap.add_argument("--resolution", type=int, default=None)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-
-    device = resolve_device(args.device)
-    spec = ppsurf_spec(dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
-    pts_orig, _ = pre_process_pts(load_pts(args.cloud))
-    center, scale = math3d.get_points_normalization_info(pts_orig, spec.padding_factor)
-    pts = math3d.normalize_points_with_info(pts_orig, center, scale).astype(np.float32)
-
-    predictor = Predictor(spec, weights=args.weights, device=device)
-    mesh = predictor.reconstruct_shape(pts, resolution=args.resolution)
-    name = os.path.basename(args.cloud)
-    if mesh is None:
-        print(f"No reconstruction for {name}")
-        return 1
-    mesh = Mesh(
-        vertices=math3d.denormalize_points_with_info(
-            mesh.vertices.astype(np.float64), center, scale
-        ).astype(np.float32),
-        faces=mesh.faces,
-    )
-    out_file = os.path.join(args.out_dir, os.path.splitext(name)[0] + ".ply")
-    os.makedirs(args.out_dir, exist_ok=True)
-    mesh.export(out_file)
-    print(f"{name}: {mesh.vertices.shape[0]} vertices, {mesh.faces.shape[0]} faces -> {out_file}")
-    return 0
+    return cli.main(["rec", *(sys.argv[1:] if argv is None else argv)])
 
 
 if __name__ == "__main__":

@@ -10,9 +10,14 @@ and `source/poco_utils.py:67-82`):
   encoded at least once per pass by construction.
 - `FieldEvaluator`: softmax(p0) - softmax(p1) at query points, in chunks
   of 50 048. Per chunk: the k=64 kNN (K1), the decoder tail on the
-  fc1-folded latents (K3), fc8, the 50-point patch taken as the prefix of
-  the 64 nearest-first ids, PointNet (K4, STN head, K5), the MLP and the
-  softmax difference.
+  fc1-folded latents (K3), fc8; for PPSurf also the P-point patch,
+  PointNet (K4, STN head, K5) and the MLP; then the softmax difference.
+  POCO's field is the softmax of fc8's two logits. The patch is the prefix
+  of the k nearest-first ids where P <= k; where P > k (the 100NN and
+  200NN configurations) one K1 call at k=P finds the patch and its first k
+  ids are the decoder's (K1 orders nearest first, ties to the lower id, so
+  they are the k=64 call's). A cloud of N < 64 points takes k = N and
+  P = min(P, N), as the JAX package does (`field.py:113-132, 528-530`).
 - `FieldEvaluator.refine_bisection`: all bisection rounds of a vertex
   chunk back to back on the device. By default on the candidate path
   (`_make_refine_cand_chunk`, `field.py:292-369`): one kc=192 kNN at the
@@ -125,8 +130,6 @@ class FieldEvaluator:
         latents (N, L) on the evaluation device; transform optional
         (values (C,), queries (C, 3)) -> (C,) post-processing of the field
         (e.g. an analytic blend), seen by growth and refinement alike."""
-        if not spec.num_pts_local <= min(spec.k, pts.shape[0]):
-            raise ValueError("the patch must be a prefix of the decoder kNN")
         self.net = net
         self.spec = spec
         self.transform = transform
@@ -134,6 +137,9 @@ class FieldEvaluator:
         self.dtype = spec.dtype
         self.chunk = _ceil_to(spec.rec_batch_size, 128)
         self.k = min(spec.k, pts.shape[0])
+        # PPSurf's patch size (0 for POCO): the prefix of the decoder's
+        # ids where it fits in them, else its own wider kNN
+        self.patch_k = min(spec.num_pts_local, pts.shape[0]) if spec.is_ppsurf else 0
         self.stat_queries = 0
         self.stat_cert_failed = 0  # vertices the candidate path handed back
 
@@ -152,21 +158,28 @@ class FieldEvaluator:
             torch.matmul(lat, fc1.kernel.float()[:lat_dim]) + fc1.bias.float()
         ).to(self.dtype).contiguous()
         self.decoder = decoder_tables(net.projection, self.dtype)
-        self.point_net = pointnet_tables(net.point_net)
+        self.point_net = pointnet_tables(net.point_net) if spec.is_ppsurf else None
 
     def eval_chunk(self, q: torch.Tensor,
                    ids: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
         """q (C, 3) f32 on the device -> field values (C,) f32. `ids` (C, k)
         are q's k nearest cloud ids, nearest first, where the caller has
         them (the candidate refinement); else K1 finds them."""
-        if ids is None:
+        patch_ids = None
+        if self.patch_k > self.k:
+            patch_ids = knn(self.pts, q, self.patch_k, blocks=self.blocks)
+            if ids is None:
+                ids = patch_ids[:, : self.k].contiguous()
+        elif ids is None:
             ids = knn(self.pts, q, self.k, blocks=self.blocks)
         pooled = decoder_tail(self.latents, self.pts, q, ids, self.decoder)
-        feat_proj = self.net.projection.fc8(pooled)
-        patches = patch_space(self.pts[ids[:, : self.spec.num_pts_local]], q)
-        feat_pn = pointnet_att(patches.to(self.dtype), self.point_net)
-        logits = self.net.from_latent({"feat_proj": feat_proj[None],
-                                       "feat_pn": feat_pn[None]})[0]
+        data = {"feat_proj": self.net.projection.fc8(pooled)[None]}
+        if self.spec.is_ppsurf:
+            if patch_ids is None:
+                patch_ids = ids[:, : self.patch_k]
+            patches = patch_space(self.pts[patch_ids], q)
+            data["feat_pn"] = pointnet_att(patches.to(self.dtype), self.point_net)[None]
+        logits = self.net.from_latent(data)[0]
         probs = torch.softmax(logits.float(), dim=-1)
         # p(class 0) - p(class 1): zero-crossing is the surface
         # (`poco_utils.py:79-81`)

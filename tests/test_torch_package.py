@@ -8,8 +8,9 @@
   plain version, K1 exactly also on duplicates, clusters with far queries,
   shuffled clouds and masks with fewer valid points than k, K2 also on
   all-tie rows at kc in {33, 192, 256} and T1 `full` at 1536 candidates,
-  the bf16 tensor-core K3-K5 within the smoke's bf16 limits (marked
-  `cuda`: skips on a machine without one).
+  the bf16 tensor-core K3-K5 within the smoke's bf16 limits, K3 also at
+  L=32 (POCO) and at k < 64 and K4/K5 at P in (64, 256] in both dtypes
+  (marked `cuda`: skips on a machine without one).
 """
 from __future__ import annotations
 
@@ -45,7 +46,14 @@ def _imported_roots(path):
             yield node.module
 
 
+# modules that must exist (their imports are checked with every other file)
+MODULES = ("cli.py", "rec.py", "data/datasets.py", "models/poco.py", "convert/init.py",
+           "ops/encoding.py", "recon/predict.py")
+
+
 def test_no_file_of_the_port_imports_jax():
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert set(MODULES) <= files
     bad = []
     for path in _port_files():
         for mod in _imported_roots(path):
@@ -176,7 +184,8 @@ def test_kernels_match_plain_versions_on_the_card():
     x2 = torch.randn(700, 50, 64, generator=g, device=dev)
     torch.testing.assert_close(pointnet_head(x2, pt), pointnet_head_plain(x2, pt),
                                rtol=1e-4, atol=1e-4)
-    assert all(v == 1 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    wider = ("decoder_tail_l32", "pointnet_trunk_wide", "pointnet_head_wide")
+    assert all(v == (k not in wider) for k, v in kernels.LAUNCHES.items()), kernels.LAUNCHES
 
     def within_bf16_limits(pairs):
         """The smoke's bf16 limits: max and mean |kernel - plain| within
@@ -232,3 +241,35 @@ def test_kernels_match_plain_versions_on_the_card():
             assert torch.equal(topk_rows(d, k), topk_rows_plain(d, k)), (kc, k)
     cand = torch.rand(701, 1536, generator=g, device=dev)
     assert torch.equal(extract(cand, "full", 64), extract_plain(cand, "full", 64))
+
+    # K3 at L=32 (POCO's seeded weights) and L=256, at k < 64; K4/K5 at
+    # P > 64 (two to four 64-row tiles), f32 to 1e-4 and bf16 within the
+    # smoke's limits
+    from ppsurf_tpu_torch.convert.init import init_variables
+    from ppsurf_tpu_torch.train.model import poco_spec
+
+    ids256 = knn_plain(pts, q701, 256)
+    for dt in (torch.float32, torch.bfloat16):
+        def agree(a, b):
+            if dt == torch.float32:
+                return torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+            return within_bf16_limits([(a, b)])
+
+        poco = load_network(poco_spec(dtype=dt), init_variables(poco_spec()), dev)
+        ppsurf = net16 if dt == torch.bfloat16 else net
+        for proj, width in ((poco.projection, 32), (ppsurf.projection, 256)):
+            tabs = decoder_tables(proj, dt)
+            lat_w = torch.randn(3000, width, generator=g, device=dev).to(dt)
+            for k in (1, 33, 63):
+                ids_k = ids256[:, :k].contiguous()
+                assert agree(decoder_tail(lat_w, pts, q701, ids_k, tabs),
+                             decoder_tail_plain(lat_w, pts, q701, ids_k, tabs)), (width, k, dt)
+        pt_dt = pt16 if dt == torch.bfloat16 else pt
+        for p in (65, 100, 200):
+            patches = patch_space(pts[ids256[:, :p]], q701).to(dt)
+            b_p, pool_p = pointnet_trunk_plain(patches, pt_dt)
+            b_k, pool_k = pointnet_trunk(patches, pt_dt)
+            assert agree(b_k, b_p) and agree(pool_k, pool_p), (p, dt)
+            x2 = stn_apply(pool_p, b_p, pt_dt)
+            assert agree(pointnet_head(x2, pt_dt), pointnet_head_plain(x2, pt_dt)), (p, dt)
+    assert all(kernels.LAUNCHES[k] for k in wider), kernels.LAUNCHES

@@ -133,8 +133,8 @@ def test_bf16_call_without_its_pack_is_refused():
     t.head_pack = None
     with pytest.raises(ValueError, match="weight pack"):
         pn._check(t, 50, "pointnet_head", {}, t.head_pack)
-    with pytest.raises(ValueError, match="P <= 64"):
-        pn._check(t, 65, "pointnet_trunk", {}, t.trunk_pack)
+    with pytest.raises(ValueError, match="P <= 256"):
+        pn._check(t, 257, "pointnet_trunk", {}, t.trunk_pack)
 
 
 # ---- the kernels' reductions over the accumulator fragments ----

@@ -309,22 +309,23 @@ def _diverging_steps(runs, rec, rows):
     return list(cause)
 
 
-def test_rec_entry_writes_the_mesh_in_input_coordinates(tmp_path, monkeypatch):
+def test_rec_entry_writes_the_mesh_in_input_coordinates(tmp_path):
     """`python -m ppsurf_tpu_torch.rec` on a shifted, scaled sphere (one
     encoder pass and one refinement step to keep it short): the PLY it
-    writes lies on the input sphere, not in the unit cube."""
+    writes, at `<out_dir>/<base>/<base>.ply` as the JAX package names it,
+    lies on the input sphere, not in the unit cube."""
     from ppsurf_tpu_torch import rec
     from ppsurf_tpu_torch.io.ply import load_ply
 
-    monkeypatch.setattr(rec, "ppsurf_spec", lambda **kw: ppsurf_spec(
-        gen_subsample_manifold_iter=1, gen_refine_iter=1, **kw))
     center = np.array([5.0, -3.0, 2.0], np.float32)
     cloud = sphere_cloud() * 10.0 + center
     np.save(tmp_path / "ball.npy", cloud)
-    rc = rec.main([str(tmp_path / "ball.npy"), str(tmp_path / "out"),
-                   "--device", "cpu", "--resolution", "11"])
+    rc = rec.main([str(tmp_path / "ball.npy"), str(tmp_path / "out"), "--device", "cpu",
+                   "--model.init_args.gen_resolution_global", "11",
+                   "--model.init_args.gen_subsample_manifold_iter", "1",
+                   "--model.init_args.gen_refine_iter", "1"])
     assert rc == 0
-    mesh = load_ply(str(tmp_path / "out" / "ball.ply"))
+    mesh = load_ply(str(tmp_path / "out" / "ball.npy" / "ball.npy.ply"))
     radius = np.linalg.norm(mesh.vertices - center, axis=1)
     assert mesh.faces.shape[0] > 200
     assert radius.max() < 5.0 and 3.6 < np.median(radius) < 4.4

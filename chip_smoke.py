@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--resolution N] [--passes N] [--refine N]
                           [--profile FILE]
 
+(with --profile, the training phase's kernel table goes to FILE.train)
+
 In order, it:
 1. prints the toolchain (torch/CUDA, nvcc) and the card's name and power
    limit as nvidia-smi reports them;
@@ -66,12 +68,27 @@ In order, it:
 11. runs `python -m ppsurf_tpu_torch.cli predict` with config stacking on
     a two-shape dataset written to a temporary directory and checks the
     paths of the meshes it writes;
-12. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
+12. trains PPSurf 50NN at full width (batch 10, 10 000 manifold points,
+    all 2 000 queries of a shape, P=50, k=64, bf16, AdamW) on 24 seeded
+    analytic solids (spheres, tori, ellipsoids at random poses, 20k-60k
+    surface points) written to a temporary directory in the reference
+    layout: `cli fit` for 2 epochs (4 steps, every loss finite, `last.pt`
+    and `config.yaml` written, K1 launched 15 times a cloud); 30 steps on
+    one fixed batch (the mean loss of the last 5 at most 0.8 of the
+    first); the median CUDA-event time of 10 bf16 steps (graph building
+    included), peak memory and the host's share of a step (with
+    --profile, the device's idle share over 3 steps); one f32 step of 2
+    clouds and 500 queries on the card and on the CPU plain path from the
+    same weights, inputs and dropout masks (K1's ids equal to the plain
+    kNN's, the loss, gradients, parameters and statistics within the
+    stated limits); `cli test` on the checkpoint (its CSV and xlsx report)
+    and `cli rec` of a test shape from `last.pt`, through K1 and K3-K5;
+13. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
 
-Phases 4 and 7-11 each reset every kernel's launch count just before
-they run and read it just after; each fails if a kernel of its path did
-not launch.
+Phases 4, 7-11 and each part of 12 reset every kernel's launch count just
+before they run and read it just after; each fails if a kernel of its path
+did not launch.
 
 Any failure exits non-zero before that last line. It needs one CUDA card
 and the repository checkout around it; it imports nothing of JAX.
@@ -87,6 +104,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import typing
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -379,6 +397,376 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
                 del x3, x64, x128, x256
             del pp, b_k, pool_k, b_p, pool_p, x2
     del ids256
+
+
+# the training phase: PPSurf 50NN at full width (configs/ppsurf.yaml +
+# ppsurf_50nn.yaml): batch 10, 10 000 manifold points, all 2 000 queries
+TRAIN_SHAPES = {"trainset": 20, "valset": 2, "testset": 2}
+TRAIN_QUERIES = 2000
+K1_PER_CLOUD = 15  # graph 9 x k=16 + 4 x k=1, decoder ids k=64, masked patch k=50
+
+
+def solid(kind: str, rng, n: int, queries):
+    """n surface points of a seeded analytic solid at a random pose in the
+    unit cube, and the signed distances of `queries` to it (negative
+    inside; the ellipsoid's is the scaled sphere's, exact in sign)."""
+    import numpy as np
+
+    u = rng.rand(4)
+    q = u / np.linalg.norm(u)  # a rotation from a random unit quaternion
+    w, x, y, z = q
+    rot = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                    [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                    [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+    centre = (rng.rand(3) - 0.5) * 0.1
+    local = (queries - centre) @ rot  # queries in the solid's frame
+    if kind == "sphere":
+        r = 0.2 + 0.15 * rng.rand()
+        d = rng.randn(n, 3)
+        surf = d / np.linalg.norm(d, axis=1, keepdims=True) * r
+        dist = np.linalg.norm(local, axis=1) - r
+    elif kind == "torus":
+        big, small = 0.22 + 0.08 * rng.rand(), 0.06 + 0.05 * rng.rand()
+        a, b = rng.rand(2, n) * 2 * np.pi
+        surf = np.stack([(big + small * np.cos(b)) * np.cos(a),
+                         (big + small * np.cos(b)) * np.sin(a), small * np.sin(b)], axis=1)
+        ring = np.linalg.norm(local[:, :2], axis=1) - big
+        dist = np.sqrt(ring ** 2 + local[:, 2] ** 2) - small
+    else:
+        radii = 0.12 + 0.25 * rng.rand(3)
+        d = rng.randn(n, 3)
+        surf = d / np.linalg.norm(d, axis=1, keepdims=True) * radii
+        dist = (np.linalg.norm(local / radii, axis=1) - 1.0) * radii.min()
+    return (surf @ rot.T + centre).astype(np.float32), dist.astype(np.float32)
+
+
+def write_training_dataset(root: str, seed: int = 0) -> str:
+    """The reference layout: 04_pts_vis/<name>.xyz.ply (20k-60k points),
+    05_query_pts and 05_query_dist/<name>.ply.npy (2 000 queries in
+    [-0.5, 0.5]^3 with their signed distances) and the set files; returns
+    the test set's path."""
+    import numpy as np
+
+    from ppsurf_tpu_torch.io.ply import save_ply
+
+    rng = np.random.RandomState(seed)
+    for d in ("04_pts_vis", "05_query_pts", "05_query_dist"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    kinds = ("sphere", "torus", "ellipsoid")
+    i = 0
+    for split, count in TRAIN_SHAPES.items():
+        names = []
+        for _ in range(count):
+            name = f"{kinds[i % 3]}_{i:02d}"
+            queries = (rng.rand(TRAIN_QUERIES, 3) - 0.5).astype(np.float32)
+            surf, dist = solid(kinds[i % 3], rng, int(rng.randint(20000, 60001)), queries)
+            save_ply(os.path.join(root, "04_pts_vis", name + ".xyz.ply"), surf)
+            np.save(os.path.join(root, "05_query_pts", name + ".ply.npy"), queries)
+            np.save(os.path.join(root, "05_query_dist", name + ".ply.npy"), dist)
+            names.append(name)
+            i += 1
+        with open(os.path.join(root, f"{split}.txt"), "w") as fp:
+            fp.write("\n".join(names) + "\n")
+    return os.path.join(root, "testset.txt")
+
+
+def training_phase(tmp: str, smi: str, profile: typing.Optional[str]) -> dict:
+    """Phase 12: `cli fit`, an overfit run, one f32 step on the card against
+    the CPU plain path, the bf16 step's time and memory, `cli test` and
+    `cli predict` from the checkpoint. Returns the numbers it printed."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch import cli
+    from ppsurf_tpu_torch.convert.checkpoint import load_checkpoint
+    from ppsurf_tpu_torch.convert.infer_npz import from_jax_variables, to_jax_variables
+    from ppsurf_tpu_torch.convert.init import init_variables
+    from ppsurf_tpu_torch.data.datasets import OccupancyDataModule
+    from ppsurf_tpu_torch.ops import kernels
+    from ppsurf_tpu_torch.ops.knn import knn_plain
+    from ppsurf_tpu_torch.ops.patches import patch_space
+    from ppsurf_tpu_torch.train import loop
+    from ppsurf_tpu_torch.train.model import ppsurf_spec
+
+    dev = torch.device("cuda")
+    out = {}
+    t0 = time.perf_counter()
+    testset = write_training_dataset(os.path.join(tmp, "train_ds"))
+    print(f"# train: dataset of {sum(TRAIN_SHAPES.values())} solids written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    configs = [a for c in ("poco", "ppsurf", "ppsurf_50nn")
+               for a in ("-c", os.path.join(HERE, "configs", f"{c}.yaml"))]
+    root = os.path.join(tmp, "models")
+    common = [*configs, "--data.init_args.in_file", testset,
+              "--trainer.default_root_dir", root,
+              "--model.init_args.results_dir", os.path.join(tmp, "results")]
+
+    # ---- 12a. cli fit: 2 epochs of 2 steps, bf16, seeded weights ----
+    trainers = []
+    fit = loop.Trainer.fit
+
+    def capture_fit(self, *a, **kw):
+        trainers.append(self)
+        return fit(self, *a, **kw)
+
+    loop.Trainer.fit = capture_fit
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["fit", *common, "--trainer.max_epochs", "2"])
+    finally:
+        loop.Trainer.fit = fit
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launch = dict(kernels.LAUNCHES)
+    trainer = trainers[0]
+    ckpt = os.path.join(root, "version_0", "checkpoints", "last.pt")
+    losses = [loss for _, loss in trainer.history]
+    print(f"# train: cli fit (ppsurf_50nn, bf16, batch 10, 10000 pts, {TRAIN_QUERIES} queries, "
+          f"2 epochs) rc {rc}, {fit_s:.2f} s; steps {[s for s, _ in trainer.history]}, "
+          f"losses {[round(v, 4) for v in losses]}; launches "
+          f"{json.dumps({k: v for k, v in fit_launch.items() if v})}", flush=True)
+    if rc != 0 or [s for s, _ in trainer.history] != [1, 2, 3, 4]:
+        fail(f"cli fit did not take its 4 steps: rc {rc}, history {trainer.history}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    payload = load_checkpoint(ckpt)
+    if payload["step"] != 4 or set(payload["variables"]) != {"params", "batch_stats"} \
+            or not payload["optimizer"]["state"] \
+            or not os.path.isfile(os.path.join(root, "version_0", "config.yaml")):
+        fail(f"{ckpt}: unexpected checkpoint layout (step {payload['step']})")
+    # 4 train steps of 10 clouds and 2 validation batches: 2 shapes, wrapped
+    # around once to 4 (`epoch_batches` pads with the order's own head)
+    n_val = TRAIN_SHAPES["valset"]
+    want = K1_PER_CLOUD * (4 * 10 + 2 * (n_val + min(n_val, -n_val % 10)))
+    if fit_launch["knn"] != want:
+        fail(f"cli fit launched K1 {fit_launch['knn']} times, expected {want}")
+    out["fit_s"] = fit_s
+
+    # ---- 12b. one fixed batch, 30 steps: the loss must fall ----
+    spec = ppsurf_spec(dtype=torch.bfloat16)
+    cfg = loop.TrainConfig()
+    dm = OccupancyDataModule(testset, batch_size=10, manifold_points=10000, seed=3)
+    batch_np = next(iter(dm.epoch_batches(dm.train_dataset(), np.random.RandomState(0), True)))
+    batch = loop.to_device(batch_np, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = spec.draw_step(10, 10000, gen, dev)
+
+    def fresh(sp, device):
+        net = sp.make_network()
+        net.load_state_dict(from_jax_variables(init_variables(sp, seed=0), net), strict=True)
+        net = net.to(device)
+        return net, loop.make_optimizer(net, cfg)
+
+    net, opt = fresh(spec, dev)
+    kernels.reset_launches()
+    loss, _ = loop.train_step(net, spec, opt, batch, draws, cfg.lr, generator=gen)
+    torch.cuda.synchronize()
+    step_launch = dict(kernels.LAUNCHES)
+    print(f"# train: one step's launches {json.dumps({k: v for k, v in step_launch.items() if v})}"
+          f" (K1 {K1_PER_CLOUD} a cloud x 10)", flush=True)
+    if step_launch["knn"] != K1_PER_CLOUD * 10:
+        fail(f"a training step launched K1 {step_launch['knn']} times, expected "
+             f"{K1_PER_CLOUD * 10}")
+    overfit = [float(loss)]
+    for _ in range(29):
+        overfit.append(float(loop.train_step(net, spec, opt, batch, draws, cfg.lr,
+                                             generator=gen)[0]))
+    late = float(np.mean(overfit[-5:]))
+    print(f"# train: overfit one batch, 30 bf16 steps: first loss {overfit[0]:.4f}, mean of the "
+          f"last 5 {late:.4f} ({late / overfit[0]:.3f} of the first; limit 0.8); losses "
+          f"{[round(v, 4) for v in overfit]}", flush=True)
+    if not (np.isfinite(overfit).all() and late <= 0.8 * overfit[0]):
+        fail(f"the loss did not fall by 20% in 30 steps on one batch: {overfit}")
+    out["overfit"] = (overfit[0], late)
+
+    # ---- 12c. the bf16 step's time, peak memory and host share ----
+    torch.cuda.reset_peak_memory_stats()
+    host, times = [], []
+    for i in range(12):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        h0 = time.perf_counter()
+        step_draws = spec.draw_step(10, 10000, gen, dev)
+        loop.train_step(net, spec, opt, batch, step_draws, cfg.lr, generator=gen)
+        h1 = time.perf_counter()
+        b.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(a.elapsed_time(b))
+            host.append((h1 - h0) * 1e3)
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    host_share = statistics.median(host) / step_ms
+    print(f"# train: bf16 step (batch 10, 10000 pts, {TRAIN_QUERIES} queries, P=50, k=64, graph "
+          f"building included): median {step_ms:.1f} ms over 10 steps (min {min(times):.1f}, "
+          f"max {max(times):.1f}); {smi}", flush=True)
+    print(f"# train: peak memory {peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"host share {host_share:.3f} (host time to enqueue a step / its device time)",
+          flush=True)
+    out.update(step_ms=step_ms, peak_gib=peak / 2 ** 30, host_share=host_share)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            p0 = time.perf_counter()
+            for _ in range(3):
+                loop.train_step(net, spec, opt, batch, draws, cfg.lr, generator=gen)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - p0
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        with open(profile + ".train", "w") as fp:
+            fp.write(f"# {smi}; 3 bf16 training steps, {elapsed:.3f} s under the profiler\n")
+            fp.write(events.table(sort_by="self_device_time_total", row_limit=40))
+        print(f"# train: profile: device busy {busy:.3f} s of {elapsed:.3f} s "
+              f"(idle share {1 - busy / elapsed:.3f}); table in {profile}.train", flush=True)
+    del net, opt, batch
+    torch.cuda.empty_cache()
+
+    # ---- 12d. one f32 step on the card against the CPU plain path ----
+    spec32 = ppsurf_spec(dtype=torch.float32)
+    small = {k: v[:2] for k, v in batch_np.items()}
+    qsel = np.random.RandomState(1).choice(TRAIN_QUERIES, 500, replace=False)
+    small["pts_query_ms"] = small["pts_query_ms"][:, qsel]
+    small["occ"] = small["occ"][:, qsel]
+    cpu = torch.device("cpu")
+    gen_cpu = torch.Generator().manual_seed(5)
+    draws_cpu = spec32.draw_step(2, 10000, gen_cpu, cpu)
+    masks_cpu = [torch.rand((2 * 500, 256), generator=gen_cpu) < 0.7 for _ in range(2)]
+    nets = {}
+    for name, device in (("card", dev), ("cpu", cpu), ("cpu_nudged", cpu)):
+        tb = loop.to_device(small, device)
+        dr = [[(t.to(device), r.to(device)) for t, r in d] for d in draws_cpu]
+        kernels.reset_launches()
+        own = spec32.assemble_step_data(tb, dr) if name != "cpu_nudged" else {}
+        nets[name] = dict(data={k: v.cpu() for k, v in own.items()},
+                          knn=kernels.LAUNCHES["knn"])
+        # the CPU step takes the card's inputs: a point on a voxel face in
+        # one device's rounding of the rotated cloud moves a support
+        data = {k: v.to(device) for k, v in nets["card"]["data"].items()}
+        net, opt = fresh(spec32, device)
+        if name == "cpu_nudged":  # the weights moved by rounding's size, 2^-24
+            with torch.no_grad():
+                g_n = torch.Generator().manual_seed(9)
+                for p_ in net.parameters():
+                    p_.mul_(1 + (torch.rand(p_.shape, generator=g_n) - 0.5) * 2 ** -23)
+        loss, _ = loop.train_step(net, types.SimpleNamespace(assemble_step_data=lambda *_: data),
+                                  opt, tb, dr, cfg.lr, masks=[m.to(device) for m in masks_cpu])
+        nets[name].update(loss=float(loss),
+                          grads={n: p.grad.detach().cpu() for n, p in net.named_parameters()},
+                          vars=to_jax_variables(net))
+        del net, opt, own, data
+    card, host_run = nets["card"], nets["cpu"]
+    # K1's training calls against the plain kNN on the card's own inputs
+    pts_c = card["data"]["pts"]
+    sup = [pts_c] + [card["data"][f"support{i}"] for i in range(1, 5)]
+    pairs = {"00": (0, 0), "01": (0, 1), "11": (1, 1), "12": (1, 2), "22": (2, 2),
+             "23": (2, 3), "33": (3, 3), "34": (3, 4), "44": (4, 4),
+             "43": (4, 3), "32": (3, 2), "21": (2, 1), "10": (1, 0)}
+    bad = []
+    for b in range(2):
+        for key, (pi, qi) in pairs.items():
+            ids = card["data"][f"ids{key}"][b]
+            plain = knn_plain(sup[pi][b], sup[qi][b], ids.shape[1])
+            bad += [] if torch.equal(ids, plain) else [f"ids{key}[{b}]"]
+        plain = knn_plain(pts_c[b], card["data"]["pts_query"][b], 64)
+        bad += [] if torch.equal(card["data"]["proj_ids"][b], plain) else [f"proj_ids[{b}]"]
+        raw = torch.from_numpy(small["pts_raw_ms"][b])
+        ids = knn_plain(raw, card["data"]["pts_query"][b], 50,
+                        valid=torch.from_numpy(small["raw_valid"][b]))
+        want_p = patch_space(raw[ids], card["data"]["pts_query"][b])
+        if not torch.allclose(card["data"]["pts_local_ps"][b], want_p, rtol=1e-6, atol=1e-6):
+            bad.append(f"pts_local_ps[{b}]")
+    same_sup = all(torch.equal(card["data"][f"support{i}"], host_run["data"][f"support{i}"])
+                   for i in range(1, 5))
+    print(f"# train: f32 step, B=2, 10000 pts, 500 queries: K1's {card['knn']} "
+          f"training-shaped launches (k=16, 1, 64 and the masked k=50 patch call) equal the "
+          f"plain kNN on the card's inputs: {not bad} {bad}; supports equal to the CPU's: "
+          f"{same_sup}", flush=True)
+    if bad or card["knn"] != K1_PER_CLOUD * 2:
+        fail(f"K1's training calls disagree with the plain kNN: {bad} ({card['knn']} launches)")
+    # The gradient has kinks (ReLU, max, argmax) that rounding-level
+    # differences cross: the CPU's own gradient moves under weights nudged
+    # by 2^-24 (printed as the yardstick). Limits: the whole gradient within
+    # 1e-2 relative L2, each leaf above 1e-5 of the largest |g| within 0.25;
+    # each parameter within AdamW's first-step Lipschitz bound of its two
+    # gradients, lr / eps x |g_card - g_cpu| + 1e-6; statistics within 1e-4
+    # of a leaf's largest value, as tests/test_torch_train.py holds them.
+    def grad_diff(ga, gb):
+        gmax = max(float(g.abs().max()) for g in gb.values())
+        num = sum(float(((ga[n] - gb[n]) ** 2).sum()) for n in gb)
+        den = sum(float((gb[n] ** 2).sum()) for n in gb)
+        leaves = {n: float((ga[n] - gb[n]).norm() / gb[n].norm()) for n in gb
+                  if float(gb[n].abs().max()) > 1e-5 * gmax}
+        worst = max(leaves, key=leaves.get)
+        return (num / den) ** 0.5, leaves[worst], worst
+
+    g_all, g_leaf, g_name = grad_diff(card["grads"], host_run["grads"])
+    n_all, n_leaf, n_name = grad_diff(nets["cpu_nudged"]["grads"], host_run["grads"])
+
+    def flat(tree, prefix=""):
+        res = {}
+        for k, v in tree.items():
+            name = f"{prefix}.{k}" if prefix else k
+            res.update(flat(v, name) if isinstance(v, dict) else {name: v})
+        return res
+
+    pc, ph = flat(card["vars"]["params"]), flat(host_run["vars"]["params"])
+    p_err = max(float(np.abs(pc[n] - ph[n]).max()) for n in ph)
+    bad_p = [n for n in ph if (np.abs(pc[n] - ph[n]) > cfg.lr / cfg.eps * np.abs(
+        card["grads"][n].numpy() - host_run["grads"][n].numpy()) + 1e-6).any()]
+    sc, sh = flat(card["vars"]["batch_stats"]), flat(host_run["vars"]["batch_stats"])
+    s_err = max(float(np.abs(sc[n] - sh[n]).max() / (np.abs(sh[n]).max() + 1e-12)) for n in sh)
+    bad_s = [n for n in sh if np.abs(sc[n] - sh[n]).max() > 1e-4 * np.abs(sh[n]).max() + 1e-7]
+    loss_rel = abs(card["loss"] - host_run["loss"]) / abs(host_run["loss"])
+    print(f"# train: f32 step, card vs CPU: loss {card['loss']:.7f} vs {host_run['loss']:.7f} "
+          f"(rel {loss_rel:.2e}, limit 1e-4); gradient rel L2 {g_all:.2e} (limit 1e-2), worst "
+          f"leaf {g_leaf:.2e} {g_name} (limit 0.25); the CPU's own under weights nudged by "
+          f"2^-24: {n_all:.2e}, worst leaf {n_leaf:.2e} {n_name}; parameters max |diff| "
+          f"{p_err:.2e}, outside their bound {bad_p[:5]}; batch statistics {s_err:.2e} of a "
+          f"leaf's max, outside {bad_s[:5]}", flush=True)
+    if loss_rel > 1e-4 or g_all > 1e-2 or g_leaf > 0.25 or bad_p or bad_s:
+        fail("the f32 training step on the card disagrees with the CPU plain path")
+    out.update(loss_rel=loss_rel, grad_rel=g_all)
+    del nets, card, host_run
+
+    # ---- 12e. cli test on the checkpoint ----
+    kernels.reset_launches()
+    rc = cli.main(["test", *common])
+    torch.cuda.synchronize()
+    report = os.path.join(tmp, "results", "ppsurf_50nn", "train_ds", "metrics_ppsurf_50nn")
+    rows = []
+    if os.path.isfile(report + ".csv"):
+        with open(report + ".csv") as fp:
+            rows = [line.split(",")[0] for line in fp.read().splitlines()]
+    print(f"# train: cli test rc {rc}: {os.path.relpath(report, tmp)}.csv rows {rows}; .xlsx "
+          f"{os.path.isfile(report + '.xlsx')}; launches "
+          f"{json.dumps({k: v for k, v in kernels.LAUNCHES.items() if v})}", flush=True)
+    if rc != 0 or len(rows) != 1 + TRAIN_SHAPES["testset"] + 3 \
+            or not os.path.isfile(report + ".xlsx"):
+        fail("cli test did not write its report")
+
+    # ---- 12f. cli rec of one test shape from last.pt: K3-K5 ----
+    with open(testset) as fp:
+        shape = fp.read().split()[0]
+    cloud = os.path.join(tmp, "train_ds", "04_pts_vis", shape + ".xyz.ply")
+    kernels.reset_launches()
+    rc = cli.main(["rec", cloud, os.path.join(tmp, "rec"), *common, "--ckpt_path", ckpt,
+                   "--model.init_args.gen_resolution_global", "65"])
+    torch.cuda.synchronize()
+    rlaunch = dict(kernels.LAUNCHES)
+    mesh_file = os.path.join(tmp, "rec", shape + ".xyz.ply", shape + ".xyz.ply.ply")
+    print(f"# train: cli rec of {shape} from last.pt at res 65: rc {rc}, mesh written "
+          f"{os.path.isfile(mesh_file)}; launches "
+          f"{json.dumps({k: v for k, v in rlaunch.items() if v})}", flush=True)
+    if any(rlaunch[k] == 0 for k in ("knn", "decoder_tail", "pointnet_trunk", "pointnet_head")):
+        fail(f"cli rec from the port checkpoint did not run K1 and K3-K5: {rlaunch}")
+    return out
 
 
 def main() -> int:
@@ -1090,6 +1478,12 @@ def main() -> int:
             fail(f"cli predict wrote {found}, expected {want} (rc {rc})")
         if any(clau[k] == 0 for k in PATH_KERNELS):
             fail(f"cli predict did not run every path kernel: {clau}")
+
+    # ---- 12. training: fit, overfit, card vs CPU, step time, test, rec ----
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        training_phase(tmp, smi, args.profile)
+        print(f"# train: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in

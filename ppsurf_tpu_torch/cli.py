@@ -1,38 +1,49 @@
-"""Command line of the port: predict / rec with YAML config stacking.
+"""Command line of the port: fit / test / predict / rec with YAML config
+stacking.
 
-    python -m ppsurf_tpu_torch.cli predict [-c a.yaml -c b.yaml ...] [--dotted.key value ...]
+    python -m ppsurf_tpu_torch.cli fit|test|predict [-c a.yaml -c b.yaml ...] [--dotted.key value ...]
     python -m ppsurf_tpu_torch.cli rec <cloud> <out_dir> [-c ...] [--dotted.key value ...]
 
 As `ppsurf_tpu/cli.py` (reference `source/cli.py`, `pps.py`): the
 `configs/*.yaml` files stack in order with a later-wins deep merge
 (`:33-50, 93-101`), `--section.init_args.key value` overrides a key with
-a YAML-typed value, the model spec comes from the merged config
-(`:104-160`), and `rec in_file out_dir` is `predict` with
-`data.init_args.in_file` and `model.init_args.results_dir` set
-(`:241-251`). `--print_config` prints the merged config.
+a YAML-typed value, the model spec, the trainer's configuration and the
+data module come from the merged config (`:104-194`), and
+`rec in_file out_dir` is `predict` with `data.init_args.in_file` and
+`model.init_args.results_dir` set (`:241-251`). `--print_config` prints
+the merged config.
 
-- Weights: `--ckpt_path` names an inference `.npz` (the JAX package's
-  `convert/infer_npz.py` format); without one, a PPSurf model takes the
-  committed `models_pretrained/ppsurf_mini_infer.npz`. Orbax checkpoints
-  are read by the JAX package only, until training is ported.
+- `fit` trains from seeded weights (or resumes `--ckpt_path`) and writes
+  `<trainer.default_root_dir>/version_{v}/checkpoints/last.pt` with the
+  resolved config as `config.yaml` beside it.
+- `test` scores the classifier on the test set into
+  `<results>/<name>/<dataset>/metrics_<name>.csv` and `.xlsx`, and
+  `predict` writes the meshes (`Predictor.predict_dataset`); both take
+  `--ckpt_path` (a port `.pt` checkpoint or an inference `.npz`), else the
+  newest `last.pt` under `trainer.default_root_dir`; `predict` of a
+  PPSurf model falls back to the committed
+  `models_pretrained/ppsurf_mini_infer.npz`. Orbax checkpoints are read by
+  the JAX package only. Their resolved config goes beside the checkpoint
+  as `config_test.yaml` / `config_predict.yaml`.
 - `--device cuda` (the default) or `--device cpu`; the network computes in
   bfloat16 on the card when the trainer's precision is 16-bit, and in
   float32 on the CPU, as the JAX package picks its dtype from its platform.
-- `predict` writes the meshes (`Predictor.predict_dataset`). Scoring them
-  (`evaluate_reconstructions`) waits for the port of the metrics.
-- `fit` and `test` belong to the JAX package until training is ported.
+- Scoring the meshes of `predict` (`evaluate_reconstructions`) waits for
+  the port of the mesh metrics.
 """
 from __future__ import annotations
 
 import copy
+import os
 import sys
 import typing
 
 import torch
 import yaml
 
-USAGE = ("usage: python -m ppsurf_tpu_torch.cli {predict,rec} [rec: <cloud> <out_dir>] "
-         "[-c config.yaml ...] [--dotted.key value ...] [--print_config]")
+USAGE = ("usage: python -m ppsurf_tpu_torch.cli {fit,test,predict,rec} "
+         "[rec: <cloud> <out_dir>] [-c config.yaml ...] [--dotted.key value ...] "
+         "[--print_config]")
 
 
 def deep_merge(base: dict, override: dict) -> dict:
@@ -147,44 +158,103 @@ def build_spec(cfg: dict, device: torch.device):
         gen_resolution_global=model_args.get("gen_resolution_global", 257),
         rec_batch_size=model_args.get("rec_batch_size", 50000),
         gen_refine_iter=model_args.get("gen_refine_iter", 10),
+        output_names=tuple(model_args.get("output_names", ["imp_surf_sign"])),
         results_dir=model_args.get("results_dir", "results"),
         padding_factor=data_args.get("padding_factor", 0.05),
         dtype=dtype,
     )
 
 
-def weights_path(cfg: dict, spec) -> str:
-    """The inference `.npz` a predict run loads."""
+def build_train_config(cfg: dict, spec):
+    """The trainer's configuration of a merged config (`ppsurf_tpu/cli.py:162-181`)."""
+    from ppsurf_tpu_torch.train.loop import TrainConfig
+
+    trainer = cfg.get("trainer", {}) or {}
+    opt_args = _section(cfg, "optimizer")
+    sched_args = _section(cfg, "lr_scheduler")
+    return TrainConfig(
+        max_epochs=trainer.get("max_epochs", 150),
+        lr=float(opt_args.get("lr", 1e-3)),
+        weight_decay=float(opt_args.get("weight_decay", 1e-2)),
+        betas=tuple(float(b) for b in opt_args.get("betas", (0.9, 0.999))),
+        eps=float(opt_args.get("eps", 1e-5)),
+        lr_milestones=tuple(sched_args.get("milestones", (75, 125))),
+        lr_gamma=float(sched_args.get("gamma", 0.1)),
+        batch_size=_section(cfg, "data").get("batch_size", 10),
+        seed=cfg.get("seed_everything", 42),
+        log_every_n_steps=trainer.get("log_every_n_steps", 1),
+        default_root_dir=trainer.get("default_root_dir", f"models/{spec.name}"),
+        debug=bool(cfg.get("debug", False) or _section(cfg, "model").get("debug", False)),
+        profiler=trainer.get("profiler"),
+    )
+
+
+def _none_if_neg(v):
+    if v is None or (isinstance(v, int) and v <= 0):
+        return None
+    return v
+
+
+def build_datamodule(cfg: dict, spec, train_cfg):
+    """The data module of a merged config (`ppsurf_tpu/cli.py:183-194`)."""
+    from ppsurf_tpu_torch.data.datasets import OccupancyDataModule
+
+    data_args = _section(cfg, "data")
+    return OccupancyDataModule(
+        in_file=data_args.get("in_file", "datasets/abc_train/testset.txt"),
+        batch_size=train_cfg.batch_size,
+        manifold_points=data_args.get("manifold_points", 10000),
+        padding_factor=data_args.get("padding_factor", 0.05),
+        seed=data_args.get("seed", train_cfg.seed),
+        do_data_augmentation=bool(data_args.get("do_data_augmentation", True)),
+        patches_per_shape=_none_if_neg(data_args.get("patches_per_shape", -1)),
+        with_raw_cloud=spec.is_ppsurf,
+        workers=data_args.get("workers", 8),
+    )
+
+
+def save_resolved_config(cfg: dict, version_dir: str, subcommand: str) -> None:
+    """The resolved config as `config.yaml` (fit) or `config_{subcommand}.yaml`
+    in the run dir (`ppsurf_tpu/cli.py:254-274`)."""
+    name = "config.yaml" if subcommand == "fit" else f"config_{subcommand}.yaml"
+    os.makedirs(version_dir, exist_ok=True)
+    with open(os.path.join(version_dir, name), "w") as fp:
+        yaml.safe_dump(cfg, fp, sort_keys=False)
+
+
+def checkpoint_path(cfg: dict, spec, train_cfg, subcommand: str) -> str:
+    """The weights a test or predict run loads: `ckpt_path`, else the newest
+    `last.pt` under the trainer's root, else (predict, PPSurf) the
+    committed inference `.npz`."""
+    from ppsurf_tpu_torch.convert.checkpoint import find_last_checkpoint
     from ppsurf_tpu_torch.recon.predict import DEFAULT_WEIGHTS
 
-    ckpt = cfg.get("ckpt_path")
+    ckpt = cfg.get("ckpt_path") or find_last_checkpoint(train_cfg.default_root_dir)
     if ckpt is None:
-        if not spec.is_ppsurf:
-            raise SystemExit(f"no weights are committed for the {spec.kind} network: "
-                             "pass --ckpt_path <inference .npz>")
-        return DEFAULT_WEIGHTS
-    if not str(ckpt).endswith(".npz"):
+        if subcommand == "predict" and spec.is_ppsurf:
+            return DEFAULT_WEIGHTS
+        raise SystemExit(f"no weights for the {spec.kind} network: no checkpoint under "
+                         f"{train_cfg.default_root_dir}; pass --ckpt_path <last.pt or "
+                         "inference .npz>")
+    if not str(ckpt).endswith((".pt", ".npz")):
         raise SystemExit(
-            f"{ckpt}: the port reads inference .npz weights only; orbax checkpoints "
-            "are read by the JAX package (ppsurf_tpu.convert.infer_npz writes the "
-            ".npz) until training is ported")
+            f"{ckpt}: the port reads its own `.pt` checkpoints and inference `.npz` "
+            "weights only; orbax checkpoints are read by the JAX package "
+            "(ppsurf_tpu.convert.infer_npz writes the `.npz`)")
     return str(ckpt)
 
 
 def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
-    from ppsurf_tpu_torch.data.datasets import ShapeDataset
+    from ppsurf_tpu_torch.convert.checkpoint import load_checkpoint_variables
+    from ppsurf_tpu_torch.convert.infer_npz import load_network
     from ppsurf_tpu_torch.device import resolve_device
-    from ppsurf_tpu_torch.recon.predict import Predictor
 
     argv = list(sys.argv[1:] if argv is None else argv)
     subcommand, configs, overrides, positional, flags = parse_cli(argv)
-    if subcommand in ("fit", "test"):
-        raise SystemExit(f"`{subcommand}` is not ported yet: run it with the JAX "
-                         "package (pps.py / poco.py)")
     if subcommand == "rec":
         overrides = rewrite_rec_args(positional, overrides)
         subcommand = "predict"
-    if subcommand != "predict":
+    if subcommand not in ("fit", "test", "predict"):
         raise SystemExit(f"unknown subcommand: {subcommand}\n{USAGE}")
 
     cfg = resolve_config(configs, overrides, subcommand)
@@ -193,15 +263,43 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         return 0
     device = resolve_device(cfg.get("device", "cuda"))
     spec = build_spec(cfg, device)
-    in_file = _section(cfg, "data").get("in_file", "datasets/abc_train/testset.txt")
-    predictor = Predictor(spec, weights=weights_path(cfg, spec), device=device)
-    results = predictor.predict_dataset(ShapeDataset(in_file, padding_factor=spec.padding_factor))
+    train_cfg = build_train_config(cfg, spec)
+    datamodule = build_datamodule(cfg, spec, train_cfg)
+
+    if subcommand == "fit":
+        from ppsurf_tpu_torch.train.loop import Trainer
+
+        trainer = Trainer(spec, train_cfg, device=device)
+        save_resolved_config(cfg, trainer.version_dir, subcommand)
+        state = trainer.fit(datamodule, ckpt_path=cfg.get("ckpt_path"))
+        print(f"fit: {state.step} steps ({spec.name}, {spec.kind}, "
+              f"{str(spec.dtype).replace('torch.', '')}, {device}) -> "
+              f"{os.path.join(trainer.ckpt_dir, 'last.pt')}")
+        return 0
+
+    ckpt = checkpoint_path(cfg, spec, train_cfg, subcommand)
+    variables = load_checkpoint_variables(ckpt)
+    if ckpt.endswith(".pt"):  # .../version_{v}/checkpoints/last.pt -> version_{v}
+        save_resolved_config(cfg, os.path.dirname(os.path.dirname(os.path.abspath(ckpt))),
+                             subcommand)
+
+    if subcommand == "test":
+        from ppsurf_tpu_torch.train.evaluate import run_test
+
+        run_test(spec, load_network(spec, variables, device), datamodule.test_dataset(),
+                 seed=train_cfg.seed)
+        return 0
+
+    from ppsurf_tpu_torch.recon.predict import Predictor
+
+    predictor = Predictor(spec, variables=variables, device=device)
+    results = predictor.predict_dataset(datamodule.predict_dataset())
     done = [r for r in results if r[1] is not None]
     for name, out_file, seconds in done:
         print(f"{name}: {seconds:.2f} s -> {out_file}")
     print(f"{len(done)} of {len(results)} shapes reconstructed ({spec.name}, {spec.kind}, "
-          f"{str(spec.dtype).replace('torch.', '')}, {device}); scoring them "
-          "(evaluate_reconstructions) waits for the port of the metrics")
+          f"{str(spec.dtype).replace('torch.', '')}, {device}, weights {ckpt}); scoring "
+          "them (evaluate_reconstructions) waits for the port of the mesh metrics")
     return 0 if len(done) == len(results) else 1
 
 

@@ -8,7 +8,8 @@ variables tree, of a PPSurf or a POCO network (or one made by
 flax names, so 'params/encoder/cv0/fc1/kernel' becomes
 'encoder.cv0.fc1.kernel' and 'batch_stats/point_net/bn1/mean' becomes
 'point_net.bn1.mean'. Flax `Dense` kernels stay (in, out) and the port
-computes `x @ W`.
+computes `x @ W`. `to_jax_variables` is the inverse: a network's state as
+that nested tree, parameters under 'params', buffers under 'batch_stats'.
 """
 from __future__ import annotations
 
@@ -88,9 +89,26 @@ def from_jax_variables(variables: dict, net: typing.Optional[torch.nn.Module] = 
     return state
 
 
+def to_jax_variables(net: torch.nn.Module) -> dict:
+    """The network's state as nested {'params', 'batch_stats'} numpy f32
+    trees in flax names: `from_jax_variables(to_jax_variables(net), net)`
+    gives `net.state_dict()` back."""
+    out: dict = {c: {} for c in COLLECTIONS}
+    for coll, named in (("params", net.named_parameters()),
+                        ("batch_stats", net.named_buffers())):
+        for name, tensor in named:
+            node = out[coll]
+            *path, leaf = name.split(".")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = tensor.detach().to("cpu", torch.float32).numpy().copy()
+    return out
+
+
 def load_network(spec, variables: dict, device: torch.device) -> torch.nn.Module:
     """Build `spec`'s network, load `variables` strictly and move it to
-    `device` in eval mode."""
+    `device` in eval mode, its parameters frozen (`requires_grad` False):
+    the network of an inference path."""
     net = spec.make_network()
     net.load_state_dict(from_jax_variables(variables, net), strict=True)
-    return net.to(device).eval()
+    return net.to(device).eval().requires_grad_(False)

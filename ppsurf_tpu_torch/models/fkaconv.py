@@ -4,9 +4,12 @@ Port of `ppsurf_tpu/models/fkaconv.py` (reference `source/base/nn.py:420-652`)
 with the segmentation head, in both configurations: PPSurf's (SiLU
 kernel-net activation, the x4d bug fixed) and POCO's (ReLU, the bug kept:
 the global-max bottleneck's output is discarded, `fkaconv.py:251-256`).
-Eval only: the learned normalization radius is a buffer.
-The gathers and the two contractions per layer are plain PyTorch, as the
-JAX package leaves them to XLA.
+Every forward takes `train`: in train mode BatchNorm normalizes with the
+batch's statistics and each layer's learned normalization radius (a
+buffer, as in the JAX package's `batch_stats`) takes its EMA step before
+the layer divides by it (`ppsurf_tpu/models/fkaconv.py:95-106`). The
+gathers and the two contractions per layer are plain PyTorch, as the JAX
+package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -14,9 +17,11 @@ import typing
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
-from ppsurf_tpu_torch.models.norm import BatchNorm, Dense, InstanceNorm, _param
+from ppsurf_tpu_torch.models.norm import BatchNorm, Dense, InstanceNorm, _param, silu
+
+
+NORM_RADIUS_MOMENTUM = 0.1  # `fkaconv.py:77`, reference `nn.py:608-613`
 
 
 def gather_neighbors(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -26,8 +31,12 @@ def gather_neighbors(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def max_pool_neighbors(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Max over gathered neighbors (reference `max_pool`, `nn.py:677-680`)."""
-    return gather_neighbors(values, ids).amax(dim=2)
+    """Max over gathered neighbors (reference `max_pool`, `nn.py:677-680`),
+    as argmax and gather: the gradient goes to the first maximum, as in
+    the JAX package (`fkaconv.py:41-52`)."""
+    gathered = gather_neighbors(values, ids)  # (B, M, K, C)
+    idx = gathered.argmax(dim=2, keepdim=True)
+    return torch.gather(gathered, 2, idx)[:, :, 0, :]
 
 
 def interpolate(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -42,7 +51,7 @@ class FKAConvLayer(nn.Module):
     """Feature-Kernel-Alignment convolution (reference `nn.py:557-652`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 16,
-                 activation: typing.Callable = F.silu,
+                 activation: typing.Callable = silu,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         ks = kernel_size
@@ -58,14 +67,21 @@ class FKAConvLayer(nn.Module):
         self.cv = _param(in_channels, ks, out_channels)
         self.register_buffer("norm_radius", torch.ones(()))
 
-    def forward(self, x, pts, support_points, neighbors_indices):
+    def forward(self, x, pts, support_points, neighbors_indices, train: bool = False):
         dt = self.dtype
         act = self.activation
         ptsg = gather_neighbors(pts, neighbors_indices)  # (B, M, K, 3)
         xg = gather_neighbors(x, neighbors_indices)  # (B, M, K, C)
 
         local = ptsg - support_points[:, :, None, :]
-        distances = torch.sqrt(torch.clamp((local * local).sum(-1), min=0.0))
+        ld = local.detach()  # the distances carry no gradient (`fkaconv.py:90-93`)
+        distances = torch.sqrt(torch.clamp((ld * ld).sum(-1), min=0.0))
+        if train:
+            # EMA of the mean largest neighbour distance, used at once
+            with torch.no_grad():
+                m = NORM_RADIUS_MOMENTUM
+                self.norm_radius.copy_(self.norm_radius * (1.0 - m)
+                                       + distances.amax(dim=2).mean() * m)
         local = (local / self.norm_radius).to(dt)
 
         # sigmoid distance weights (`nn.py:619-624`)
@@ -101,7 +117,7 @@ class ResidualBlock(nn.Module):
     """Bottleneck residual block around FKAConv (reference `nn.py:420-450`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 16,
-                 activation: typing.Callable = F.silu,
+                 activation: typing.Callable = silu,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         half = in_channels // 2
@@ -117,15 +133,15 @@ class ResidualBlock(nn.Module):
         else:
             self.shortcut = None
 
-    def forward(self, x, pts, support_points, neighbors_indices):
-        h = torch.relu(self.bn0(self.cv0(x)))
-        h = self.cv1(h, pts, support_points, neighbors_indices)
-        h = torch.relu(self.bn1(h))
-        h = self.bn2(self.cv2(h))
+    def forward(self, x, pts, support_points, neighbors_indices, train: bool = False):
+        h = torch.relu(self.bn0(self.cv0(x), train))
+        h = self.cv1(h, pts, support_points, neighbors_indices, train)
+        h = torch.relu(self.bn1(h, train))
+        h = self.bn2(self.cv2(h), train)
 
         x_short = x
         if self.shortcut is not None:
-            x_short = self.bn_shortcut(self.shortcut(x_short))
+            x_short = self.bn_shortcut(self.shortcut(x_short), train)
         if x_short.shape[1] != h.shape[1]:  # downsampling level
             x_short = max_pool_neighbors(x_short, neighbors_indices)
         return torch.relu(h + x_short)
@@ -138,7 +154,7 @@ class FKAConvNetwork(nn.Module):
     and bn5 stay in the weights."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 256,
-                 hidden: int = 64, activation: typing.Callable = F.silu,
+                 hidden: int = 64, activation: typing.Callable = silu,
                  x4d_bug_fixed: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         hd = hidden
@@ -171,37 +187,39 @@ class FKAConvNetwork(nn.Module):
         self.bn0d = BatchNorm(hd, dtype=dtype)
         self.fcout = Dense(hd, out_channels, dtype=dtype)
 
-    def forward(self, data: typing.Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, data: typing.Dict[str, torch.Tensor],
+                train: bool = False) -> torch.Tensor:
         relu = torch.relu
         pts = data["pts"]  # (B, N, 3)
         x = torch.ones_like(pts, dtype=self.dtype)  # reference feeds ones (`nn.py:517`)
         s1, s2, s3, s4 = (data[f"support{i}"] for i in range(1, 5))
 
-        x0 = relu(self.bn0(self.cv0(x, pts, pts, data["ids00"])))
-        x0 = self.resnetb01(x0, pts, pts, data["ids00"])
-        x1 = self.resnetb10(x0, pts, s1, data["ids01"])
-        x1 = self.resnetb11(x1, s1, s1, data["ids11"])
-        x2 = self.resnetb20(x1, s1, s2, data["ids12"])
-        x2 = self.resnetb21(x2, s2, s2, data["ids22"])
-        x3 = self.resnetb30(x2, s2, s3, data["ids23"])
-        x3 = self.resnetb31(x3, s3, s3, data["ids33"])
-        x4 = self.resnetb40(x3, s3, s4, data["ids34"])
-        x4 = self.resnetb41(x4, s4, s4, data["ids44"])
+        x0 = relu(self.bn0(self.cv0(x, pts, pts, data["ids00"], train), train))
+        x0 = self.resnetb01(x0, pts, pts, data["ids00"], train)
+        x1 = self.resnetb10(x0, pts, s1, data["ids01"], train)
+        x1 = self.resnetb11(x1, s1, s1, data["ids11"], train)
+        x2 = self.resnetb20(x1, s1, s2, data["ids12"], train)
+        x2 = self.resnetb21(x2, s2, s2, data["ids22"], train)
+        x3 = self.resnetb30(x2, s2, s3, data["ids23"], train)
+        x3 = self.resnetb31(x3, s3, s3, data["ids33"], train)
+        x4 = self.resnetb40(x3, s3, s4, data["ids34"], train)
+        x4 = self.resnetb41(x4, s4, s4, data["ids44"], train)
 
         # global max in f32, then the bottleneck; the reference POCO
-        # discards it (`nn.py:533-534`)
-        if self.x4d_bug_fixed:
+        # discards it (`nn.py:533-534`), but in train mode its BatchNorm
+        # still updates its running statistics, as in the JAX package
+        if self.x4d_bug_fixed or train:
             x5 = x4.float().amax(dim=1, keepdim=True).expand_as(x4).to(x4.dtype)
-            x4d = relu(self.bn5(self.cv5(torch.cat([x4, x5], dim=-1))))
-        else:
+            x4d = relu(self.bn5(self.cv5(torch.cat([x4, x5], dim=-1)), train))
+        if not self.x4d_bug_fixed:
             x4d = x4
 
         x3d = interpolate(x4d, data["ids43"])
-        x3d = relu(self.bn3d(self.cv3d(torch.cat([x3d, x3], dim=-1))))
+        x3d = relu(self.bn3d(self.cv3d(torch.cat([x3d, x3], dim=-1)), train))
         x2d = interpolate(x3d, data["ids32"])
-        x2d = relu(self.bn2d(self.cv2d(torch.cat([x2d, x2], dim=-1))))
+        x2d = relu(self.bn2d(self.cv2d(torch.cat([x2d, x2], dim=-1)), train))
         x1d = interpolate(x2d, data["ids21"])
-        x1d = relu(self.bn1d(self.cv1d(torch.cat([x1d, x1], dim=-1))))
+        x1d = relu(self.bn1d(self.cv1d(torch.cat([x1d, x1], dim=-1)), train))
         xout = interpolate(x1d, data["ids10"])
-        xout = relu(self.bn0d(self.cv0d(torch.cat([xout, x0], dim=-1))))
+        xout = relu(self.bn0d(self.cv0d(torch.cat([xout, x0], dim=-1)), train))
         return self.fcout(xout)

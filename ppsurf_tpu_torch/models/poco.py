@@ -1,11 +1,12 @@
 """POCO network: FKAConv encoder + interpolation-attention decoder.
 
 Port of `ppsurf_tpu/models/poco.py:22-68` (reference `PocoNetwork`,
-`source/poco_model.py:332-359`), eval only: the FKAConv encoder in the
+`source/poco_model.py:332-359`): the FKAConv encoder in the
 reference POCO configuration (ReLU kernel-net activation, the x4d bug
 kept, `ppsurf_tpu/models/fkaconv.py:199, 251-256`) and the
 InterpAttentionKHeadsNet decoder at the latent width (32), 64 heads, with
-fc8 going straight to the two logits.
+fc8 going straight to the two logits. `forward(data, train)` runs both
+under autograd; `from_latent`'s shortcuts serve inference only.
 """
 from __future__ import annotations
 
@@ -30,9 +31,19 @@ class PocoNetwork(nn.Module):
         self.projection = InterpAttentionKHeadsNet(latent_size, out_channels, k,
                                                    dtype=dtype)
 
-    def get_latent(self, data: typing.Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, data: typing.Dict[str, torch.Tensor], train: bool = False,
+                generator: typing.Optional[torch.Generator] = None,
+                masks=None) -> torch.Tensor:
+        """data: pts, the FKAConv graph, pts_query and proj_ids -> (B, Q, 2)
+        logits. POCO has no dropout: `generator` and `masks` are unused."""
+        latents = self.encoder(data, train)
+        return self.projection(latents, data["pts"], data["pts_query"], data["proj_ids"],
+                               last_layer=True)
+
+    def get_latent(self, data: typing.Dict[str, torch.Tensor],
+                   train: bool = False) -> torch.Tensor:
         """data: pts (B, N, 3) and the FKAConv graph -> (B, N, L) latents."""
-        return self.encoder(data)
+        return self.encoder(data, train)
 
     def from_latent(self, data: typing.Dict[str, torch.Tensor]) -> torch.Tensor:
         """Decoder from precomputed latents -> (B, Q, 2) logits.

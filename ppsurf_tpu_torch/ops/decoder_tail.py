@@ -115,6 +115,7 @@ def pack_wgmma_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
                      + column_halves(wv)).contiguous()
 
 
+@torch.no_grad()
 def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
     """Tables from an `InterpAttentionKHeadsNet` (fc1 is (L+3, L))."""
     lat = projection.fc2.kernel.shape[0]

@@ -3,8 +3,11 @@
 Port of `ppsurf_tpu/ops/graph.py` (replacing the reference's CPU
 `get_fkaconv_ids`/`get_proj_ids`, `source/poco_data_loader.py:137-240`):
 four voxel subsamplings and every kNN id set of the U-Net, through the
-port's kNN (kernel K1 on CUDA tensors). One cloud at a time; outputs carry
-a batch axis of 1 for the network.
+port's kNN (kernel K1 on CUDA tensors). `build_fkaconv_graph` builds one
+cloud's, with a batch axis of 1 for the network; `build_fkaconv_graph_batch`
+builds B clouds' with their own draws each, as the JAX package's
+`voxel_subsample` splits its key over the batch (`subsample.py:106-115`).
+A cloud's graph is 13 K1 calls: 9 at k=16 and 4 at k=1.
 """
 from __future__ import annotations
 
@@ -70,7 +73,21 @@ def build_fkaconv_graph(pts: torch.Tensor, draws: Draws) -> typing.Dict[str, tor
     return graph
 
 
+def build_fkaconv_graph_batch(pts: torch.Tensor, draws: typing.Sequence[Draws]
+                              ) -> typing.Dict[str, torch.Tensor]:
+    """pts (B, N, 3) and one cloud's draws per item -> `build_fkaconv_graph`'s
+    keys, each (B, ...)."""
+    graphs = [build_fkaconv_graph(pts[b], draws[b]) for b in range(pts.shape[0])]
+    return {key: torch.cat([g[key] for g in graphs]) for key in graphs[0]}
+
+
 def build_proj_ids(pts: torch.Tensor, pts_query: torch.Tensor, k: int = 64) -> torch.Tensor:
     """k-NN of queries into the cloud for the decoder (reference
     `get_proj_ids`, `poco_data_loader.py:212-240`): (N, 3), (Q, 3) -> (Q, k)."""
     return knn(pts, pts_query, min(k, pts.shape[0]))
+
+
+def build_proj_ids_batch(pts: torch.Tensor, pts_query: torch.Tensor, k: int = 64
+                         ) -> torch.Tensor:
+    """`build_proj_ids` of each item: (B, N, 3), (B, Q, 3) -> (B, Q, k)."""
+    return torch.stack([build_proj_ids(pts[b], pts_query[b], k) for b in range(pts.shape[0])])

@@ -32,3 +32,13 @@ def extract_local_patches(pts_raw: torch.Tensor, pts_query: torch.Tensor,
     """
     ids = knn(pts_raw, pts_query, num_pts_local, valid=valid_raw)
     return patch_space(pts_raw[ids], pts_query)
+
+
+def extract_local_patches_batch(pts_raw: torch.Tensor, valid_raw: torch.Tensor,
+                                pts_query: torch.Tensor, num_pts_local: int) -> torch.Tensor:
+    """The patches of B padded raw clouds (`ppsurf_tpu/ops/patches.py:34-56`):
+    pts_raw (B, R, 3), valid_raw (B, R) bool, pts_query (B, Q, 3) ->
+    (B, Q, num_pts_local, 3), one masked K1 call an item."""
+    return torch.stack([
+        extract_local_patches(pts_raw[b], pts_query[b], num_pts_local, valid_raw[b])
+        for b in range(pts_raw.shape[0])])

@@ -136,6 +136,7 @@ def _aff(pairs) -> torch.Tensor:
     return torch.stack(rows).contiguous()
 
 
+@torch.no_grad()
 def pointnet_tables(point_net) -> PointNetTables:
     """Tables from a `models.pointnet.PointNetfeat`."""
     pn, stn, att = point_net, point_net.stn2, point_net.att

@@ -26,6 +26,9 @@ and `source/poco_utils.py:67-82`):
   vertices whose certificate fails are refined again on the plain path,
   where every round is a full field evaluation with its own kNN.
 
+Every entry point runs under `torch.inference_mode()`: no autograd graph
+is recorded, whether or not the network's parameters require gradients.
+
 The cloud is Morton-sorted once per shape and every query batch per call,
 so neighbouring queries share K1's blocks; results are scattered back to
 the caller's order.
@@ -94,6 +97,7 @@ class LatentEncoder:
         graphs = [draw_graph(s, generator, device) for _ in range(iters * num_chunks)]
         return EncoderDraws(perms, graphs)
 
+    @torch.inference_mode()
     def __call__(self, pts: torch.Tensor,
                  generator: typing.Optional[torch.Generator] = None,
                  draws: typing.Optional[EncoderDraws] = None) -> torch.Tensor:
@@ -124,6 +128,7 @@ class LatentEncoder:
 class FieldEvaluator:
     """Chunked evaluation of the occupancy field on the latents' device."""
 
+    @torch.inference_mode()
     def __init__(self, net, spec: ModelSpec, pts: np.ndarray,
                  latents: torch.Tensor, transform: typing.Optional[Transform] = None):
         """pts (N, 3) the cloud that carries the latents and the patches;
@@ -160,6 +165,7 @@ class FieldEvaluator:
         self.decoder = decoder_tables(net.projection, self.dtype)
         self.point_net = pointnet_tables(net.point_net) if spec.is_ppsurf else None
 
+    @torch.inference_mode()
     def eval_chunk(self, q: torch.Tensor,
                    ids: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
         """q (C, 3) f32 on the device -> field values (C,) f32. `ids` (C, k)
@@ -192,6 +198,7 @@ class FieldEvaluator:
         return [torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)[order]))
                 .to(self.device) for a in arrays]
 
+    @torch.inference_mode()
     def __call__(self, queries: np.ndarray) -> np.ndarray:
         """queries (M, 3) -> field (M,), in Morton-sorted chunks."""
         m = queries.shape[0]
@@ -206,6 +213,7 @@ class FieldEvaluator:
         out[order] = vals.cpu().numpy()
         return out
 
+    @torch.inference_mode()
     def refine_bisection(self, v: np.ndarray, v1: np.ndarray, v2: np.ndarray,
                          p1: np.ndarray, p2: np.ndarray, iters: int,
                          force_full: bool = False) -> np.ndarray:

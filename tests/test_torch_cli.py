@@ -151,7 +151,7 @@ def test_cli_predict_and_rec_end_to_end(tmp_path, capsys):
     np.testing.assert_array_equal(load_ply(cloud).vertices, before)
 
 
-def test_cli_refuses_what_it_cannot_load(tmp_path):
+def test_cli_refuses_what_it_cannot_load(tmp_path, monkeypatch):
     cloud = str(tmp_path / "c.xyz")
     np.savetxt(cloud, sphere_cloud(100))
     with pytest.raises(SystemExit, match="orbax"):
@@ -159,6 +159,8 @@ def test_cli_refuses_what_it_cannot_load(tmp_path):
                   "--ckpt_path", str(tmp_path / "version_0" / "checkpoints" / "last")])
     with pytest.raises(SystemExit, match="no weights"):
         cli.main(["rec", cloud, str(tmp_path), "--device", "cpu", "-c", _configs(["poco"])[0]])
-    with pytest.raises(SystemExit, match="not ported"):
+    # fit defaults to the card and does not fall back to the CPU
+    monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
         cli.main(["fit", "-c", _configs(["poco"])[0]])
     assert cli.main(["predict", "-c", _configs(["poco"])[0], "--print_config"]) == 0

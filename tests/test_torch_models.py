@@ -51,7 +51,7 @@ def _random_stats(variables, rng):
 
 def _load(module, variables):
     module.load_state_dict(from_jax_variables(variables, module), strict=True)
-    return module.eval()
+    return module.eval().requires_grad_(False)
 
 
 def _t(a):

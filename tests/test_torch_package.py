@@ -2,7 +2,8 @@
 
 - no file of the port imports jax, flax or the JAX package, statically or
   at run time (package, chip_smoke.py and chip_rounding_control.py);
-- entry points default to CUDA and raise where there is none;
+- entry points (the predictor, the trainer) default to CUDA and raise
+  where there is none;
 - the committed weights map onto the port's network key for key;
 - on a card, each kernel wrapper launches its kernel and agrees with its
   plain version, K1 exactly also on duplicates, clusters with far queries,
@@ -48,7 +49,9 @@ def _imported_roots(path):
 
 # modules that must exist (their imports are checked with every other file)
 MODULES = ("cli.py", "rec.py", "data/datasets.py", "models/poco.py", "convert/init.py",
-           "ops/encoding.py", "recon/predict.py")
+           "convert/checkpoint.py", "ops/encoding.py", "recon/predict.py", "train/loop.py",
+           "train/evaluate.py", "metrics/classification.py", "eval/reports.py",
+           "eval/xlsx.py")
 
 
 def test_no_file_of_the_port_imports_jax():
@@ -92,6 +95,17 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from ppsurf_tpu_torch.train.loop import TrainConfig, Trainer
+    from ppsurf_tpu_torch.train.model import ppsurf_spec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(ppsurf_spec(), TrainConfig(default_root_dir="unused"))
+    assert Trainer(ppsurf_spec(), TrainConfig(default_root_dir="unused"),
+                   device="cpu").device.type == "cpu"
 
 
 def test_committed_weights_fill_the_network_key_for_key():

@@ -35,10 +35,10 @@ MUTANTS = {
         "ppsurf_tpu_torch/csrc/pointnet.cu",
         "const float att = rnd<bf16>(e / s);",
         "const float att = e / s;"),
-    "K5 bf16 softmax weight not rounded, patches of several tiles": (
+    "K5 bf16 softmax weight not rounded, a patch's tiles on a cluster": (
         "ppsurf_tpu_torch/csrc/pointnet.cu",
-        "att[r] = rnd<bf16>(e / s);",
-        "att[r] = e / s;"),
+        "const float weight = rnd<bf16>(mine_e / s);",
+        "const float weight = mine_e / s;"),
     "K5 bf16 fc_value epilogue: product not rounded before its bias": (
         "ppsurf_tpu_torch/csrc/pointnet.cu",
         "const float2 v = rnd2(acc0, acc1);",
@@ -47,6 +47,14 @@ MUTANTS = {
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
         "return rnd<bf16>(rnd<bf16>(acc) + b);",
         "return rnd<bf16>(acc + b);"),
+    "K3 latent 32 epilogue: product not rounded before its bias (fc2, fc3, fc_query, fc_value)": (
+        "ppsurf_tpu_torch/csrc/decoder_tail.cu",
+        "return rnd<bf16>(rnd<bf16>(x) + bias);",
+        "return rnd<bf16>(x + bias);"),
+    "K3 latent 32 head-mean attention not rounded": (
+        "ppsurf_tpu_torch/csrc/decoder_tail.cu",
+        "return real ? rnd<bf16>(sum / HEADS) : 0.f;",
+        "return real ? sum / HEADS : 0.f;"),
     "K3 head-mean attention not rounded": (
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
         "att[tid] = tid < kn ? rnd<T>(a / HEADS) : 0.f;",

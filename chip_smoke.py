@@ -12,11 +12,12 @@ In order, it:
 2. builds the CUDA kernels from `ppsurf_tpu_torch/csrc` with nvcc for
    sm_90a, prints the build seconds and ptxas' register report, and fails
    unless every K1 instantiation has a 0-byte stack frame, the SASS of
-   each bf16 tensor-core kernel (K3 decoder tail, K4 PointNet trunk, K5
-   PointNet head for one tile and for up to four) holds HGMMA
-   instructions, and ptxas reports 0 spill bytes for the K4 and K5 ones
-   and for every K2 and T1 kernel; prints the
-   SASS instruction count of each T1 variant's pass loop;
+   each bf16 tensor-core kernel (K3 decoder tail at latent 256 and at
+   latent 32, K4 PointNet trunk, K5 PointNet head for one tile and, as a
+   thread-block cluster, for two to four) holds HGMMA instructions, and
+   ptxas reports 0 spill bytes for the latent-32 K3, K4 and K5 ones and
+   for every K2 and T1 kernel; prints the SASS instruction count of each
+   T1 variant's pass loop;
 3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
    the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
    PointNet) at the production shapes, and the seven T1 selection
@@ -39,8 +40,13 @@ In order, it:
    the tensor cores; then the builds of the other paths, bf16 and f32
    under the same limits: K3 at latent 32 (POCO) at k in {1, 33, 50, 63,
    64}, K3 at latent 256 at k in {1, 33, 40, 50, 63}, K4/K5 at P in {65,
-   100, 128, 200}, the ones on a path timed beside bound, plain version
-   and yardstick;
+   100, 128, 129, 192, 200, 256} (every cluster size of K5, and last
+   tiles of one row), the ones on a path timed beside bound, plain
+   version and yardstick, with the launch shape of the latent-32 K3 and
+   the cluster K5 (CTAs a cluster, clusters or blocks the card holds at
+   once, the weight bytes a launch streams by design) and, for the
+   latent-32 K3, the SFU floor of its softmax beside its bound, on
+   comment lines;
 4. reconstructs a seeded synthetic 60k-point surface cloud end to end with
    the committed weights in bf16 through `Predictor.reconstruct_shape`,
    with every kernel's launch count reset just before and read just after
@@ -300,16 +306,50 @@ TRUNK_MACS = 3 * 64 + 64 * 64 + 64 * 64 + 64 * 128 + 128 * 256
 HEAD_MACS = 64 * 64 + 64 * 128 + 128 * 256 + 256 + 256 * 256
 
 
+# K5 at P > 64 runs as a cluster of ceil(P / 64) CTAs: every cluster size,
+# and last tiles of 1 to 64 rows
+WIDE_P = (65, 100, 128, 129, 192, 200, 256)
+# SFU operations a clock an SM (H100, compute capability 9.0: the CUDA
+# programming guide's throughput table)
+SFU_PER_CLOCK = 16
+
+
+def launch_shape(symbol: str, *args: int) -> dict:
+    """A kernel's launch for these arguments (`kernels.launch_info`): the
+    CTAs a cluster, the clusters (or blocks an SM) the card holds at once,
+    the grid's blocks, and the weight bytes a launch streams by design (a
+    count from the kernel's constants, not a measurement). Printed on a
+    comment line only, never in the kernels line."""
+    from ppsurf_tpu_torch.ops import kernels
+
+    cluster, active, blocks, weight_bytes = kernels.launch_info(symbol, *args)
+    return dict(cluster=cluster, active=active, grid_blocks=blocks, weight_bytes=weight_bytes)
+
+
+def sfu_floor_ms(c: int, k: int) -> float:
+    """The latent-32 K3's softmax floor on the SFU, worked out, not
+    measured: an exponential and a division (its reciprocal) for each of a
+    query's k x 64 (row, head) pairs, 16 a clock on each SM, at the card's
+    highest SM clock. Printed on a comment line only."""
+    import torch
+
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return c * k * 64 * 2 / (SFU_PER_CLOCK * sms * mhz * 1e6) * 1e3
+
+
 def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) -> None:
     """The builds for POCO, patches wider than 64 and clouds under 64
     points against their plain versions, bf16
-    and f32 under the K3-K5 limits: K3 at latent 32 (POCO, seeded weights)
-    at k in {1, 33, 50, 63, 64}, K3 at latent 256 at k in {1, 33, 40, 50,
-    63}, K4 and K5 at P in {65, 100, 128, 200} (two to four 64-row tiles).
+    and f32 under the K3-K5 limits: K3 at latent 32 (POCO, seeded weights
+    and seeded nonzero biases) at k in {1, 33, 50, 63, 64}, K3 at latent 256 at k in {1, 33, 40, 50,
+    63}, K4 and K5 at P in WIDE_P (two to four 64-row tiles).
     The bf16 ones at the main paths' shapes are timed beside their bound,
     their plain version and a bf16 torch.matmul yardstick of their
     products: K3-L32 at k=64, K3 at k=40 (a 40-point cloud), K4/K5 at
-    P=100 and P=200."""
+    P=100 and P=200. The latent-32 K3 and the cluster K5 print their
+    launch shape; the latent-32 K3 its SFU floor."""
     import torch
 
     from ppsurf_tpu_torch.convert.infer_npz import load_network
@@ -324,12 +364,24 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
 
     n, c = pts.shape[0], q.shape[0]
     ids256 = knn(pts, q, 256)
+
+    def poco_projection(dt):
+        """POCO's decoder on its seeded weights, whose biases flax
+        initialises to zero, with seeded biases of scale 0.1: a zero bias
+        would hide a dense epilogue that skips its rounding before the
+        bias (`chip_rounding_control.py`)."""
+        proj = load_network(poco_spec(dtype=dt), poco_vars, dev).projection
+        g = torch.Generator(device=dev).manual_seed(7)
+        with torch.no_grad():
+            for layer in (proj.fc2, proj.fc3, proj.fc_query, proj.fc_value):
+                layer.bias.copy_(0.1 * torch.randn(layer.bias.shape, generator=g, device=dev))
+        return proj
+
     for dt, tag, tol in ((torch.bfloat16, "bf16", (1.6e-2, 2e-6)),
                          (torch.float32, "f32", (1e-4, 2e-6))):
         bf = dt == torch.bfloat16
         esize = 2 if bf else 4
-        for lat_w, proj, ks in ((32, load_network(poco_spec(dtype=dt), poco_vars, dev).projection,
-                                 (1, 33, 50, 63, 64)),
+        for lat_w, proj, ks in ((32, poco_projection(dt), (1, 33, 50, 63, 64)),
                                 (256, nets[dt].projection, (1, 33, 40, 50, 63))):
             tabs = decoder_tables(proj, dt)
             lat = torch.randn(n, lat_w, generator=gen, device=dev).to(dt)
@@ -351,13 +403,26 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
                     shape=f"C={c} k={k} L={lat_w} heads=64 {tag}",
                 )
+                if lat_w == 32:
+                    res, shp = results[name], launch_shape("ppsurf_decoder_tail_l32_info", c)
+                    b2b = cuda_ms(lambda: decoder_tail(lat, pts, q, idk, tabs), batch=20)
+                    print(f"# K3 L=32 bf16 launch: {shp['active']} blocks an SM of "
+                          f"{shp['grid_blocks'] // shp['active']} SMs ({shp['grid_blocks']} "
+                          f"blocks, no cluster); weight bytes a launch streams by design "
+                          f"{shp['weight_bytes']} (a count, not a measurement); "
+                          f"{res['ms']:.4f} ms a call, {b2b:.4f} ms over 20 back-to-back "
+                          f"calls, against its bound {res['bound_ms']:.4f} ms "
+                          f"({res['bound_by']}) and its softmax's SFU floor "
+                          f"{sfu_floor_ms(c, k):.4f} ms (worked out: {c} x {k} x 64 "
+                          f"exponentials and divisions, {SFU_PER_CLOCK} a clock an SM)",
+                          flush=True)
                 xg = lat[idk].reshape(-1, lat_w)
                 yardstick(f"K3 L={lat_w} k={k}", "fc2, fc3, fc_query, fc_value",
                           [(xg, wt) for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv)])
                 del xg
             del lat, tabs
         pt = pointnet_tables(nets[dt].point_net)
-        for p in (65, 100, 128, 200):
+        for p in WIDE_P:
             pp = patch_space(pts[ids256[:, :p]], q).to(dt).contiguous()
             b_k, pool_k = pointnet_trunk(pp, pt)
             b_p, pool_p = pointnet_trunk_plain(pp, pt)
@@ -383,6 +448,13 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
                         shape=f"C={c} P={p} bf16",
                     )
+                shp = launch_shape("ppsurf_pointnet_head_info", c, p)
+                print(f"# K5 P={p} bf16 launch: clusters of {shp['cluster']} CTAs, "
+                      f"{shp['active']} clusters at once ({shp['grid_blocks']} blocks); weight "
+                      f"bytes a launch streams by design {shp['weight_bytes']} (a count, not "
+                      f"a measurement); {results[f'pointnet_head_wide_p{p}']['ms']:.4f} ms a call, "
+                      f"{cuda_ms(lambda: pointnet_head(x2, pt), batch=20):.4f} ms over 20 "
+                      "back-to-back calls", flush=True)
                 w0a, w0b, ws1, ws2, ws3 = pt.trunk_w
                 x3, x64 = pp.reshape(-1, 3), b_p.reshape(-1, 64)
                 x128 = torch.matmul(x64, ws2)
@@ -840,9 +912,10 @@ def main() -> int:
     sass = run([os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump"), "-sass",
                 lib.path])
     for tag, kernel, no_spill in (("K3", "decoder_tail_wgmma_kernel", False),
+                                  ("K3 latent 32", "decoder_tail_narrow_wgmma_kernel", True),
                                   ("K4", "trunk_wgmma_kernel", True),
                                   ("K5", "head_wgmma_kernel", True),
-                                  ("K5", "head_wgmma_tiles_kernel", True)):
+                                  ("K5 cluster", "head_cluster_kernel", True)):
         hgmma = sum(part.count("HGMMA") for part in sass.split("Function : ")
                     if kernel in part.split("\n", 1)[0])
         frame, spill = report.get(kernel, (None, None))

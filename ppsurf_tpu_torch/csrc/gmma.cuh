@@ -4,6 +4,10 @@
 // copies (TMA without a tensor map), a producer/consumer ring of weight
 // slices and named barriers.
 //
+// Since the latent-32 K3 and the cluster K5: products with A in registers
+// (the RS form), and the cluster primitives (rank, barrier, distributed
+// shared memory, remote mbarrier arrivals, multicast bulk copies).
+//
 // Shared-memory operand layout (the one `wgmma` reads with 128-byte
 // swizzling, K-major): a (rows x 64) bf16 tile stores row r's 128 bytes at
 // r * 128, with its 16-byte unit u at unit u ^ (r % 8); 8-row atoms are
@@ -16,6 +20,7 @@
 // 8j + 2 (l % 4) + (e % 2), for j < N / 8.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -217,6 +222,24 @@ __device__ __forceinline__ void add_partial(float (&total)[M], const float (&par
   for (int i = 0; i < M; ++i) total[i] = tile ? total[i] + part[i] : part[i];
 }
 
+// 16 bytes from global to shared memory (both 16-byte aligned) by the
+// calling thread, asynchronously: commit, then wait before reading
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+// 4 bytes (both 4-byte aligned), asynchronously, as cp_async16
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // A ring of STAGES shared-memory slots of SLICE bytes that one producer
 // thread fills with bulk copies and the consumer warpgroups read in the
 // same order. Every consumer thread waits for a slot and releases it (the
@@ -261,6 +284,132 @@ struct Ring {
     advance();
   }
 };
+
+// ---- A from registers (the RS form) ----
+//
+// Register fragment of a (64 x 16) bf16 A operand, thread t of the
+// warpgroup, warp w, lane l: a[i] holds two bf16 (the lower column in the
+// low half) of row 16w + l/4 + 8 (i % 2), columns 2 (l % 4) + 8 (i / 2)
+// and one more. Columns 16kk..16kk+15 of an m64nN accumulator fragment
+// (above) are therefore d[8kk..8kk+7] packed in pairs: the output of one
+// product is the A operand of the next without shared memory.
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// D (64 x 32, f32) (+)= A (64 x 16, registers) B (16 x 32, K-major in
+// shared memory); `accumulate` 0 overwrites.
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t* a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, {%16,%17,%18,%19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16, registers) B (16 x 64, K-major in
+// shared memory); `accumulate` 0 overwrites.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t* a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,"
+      "%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// ---- thread-block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+// every non-exited thread of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it are visible to all CTAs after.
+// A thread may arrive early and wait later, but must wait before it
+// arrives again.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// the address in CTA `rank`'s shared memory of local shared address `addr`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t cluster_addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(cluster_addr), "f"(v) : "memory");
+}
+// arrive on an mbarrier of any CTA of the cluster (a `map_rank` address).
+// The default .release.cta semantics: these arrivals order no data of the
+// arriving thread (a consumer frees a slot that its completed `wgmma` read;
+// the producer announces bytes), and .release.cluster would fence every one.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(cluster_addr)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx_cluster(uint32_t cluster_addr,
+                                                              uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cluster.b64 _, [%0], %1;\n" ::"r"(
+                   cluster_addr), "r"(bytes) : "memory");
+}
+// `bytes` from global memory to the same shared offset `dst` of every CTA
+// in `mask`; each CTA's mbarrier at the offset of `bar` counts them
+__device__ __forceinline__ void bulk_copy_g2s_multicast(void* dst, const void* src,
+                                                        uint32_t bytes, uint64_t* bar,
+                                                        uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)), "h"(mask) : "memory");
+}
 
 }  // namespace gmma
 }  // namespace ppsurf

@@ -12,13 +12,14 @@
 // P <= 256 points is ceil(P / 64) tiles of 64 rows, each tile the 64 rows
 // of every product; a tile's rows past P repeat the tile's first point:
 // they never change a max and are masked out of the softmax. K4 takes its
-// max across the tiles. K5 has a kernel for one tile (P <= 64) and one for
-// several (`head_wgmma_tiles_kernel`), which rounds as the plain version
-// does: it computes the logits of every tile first, takes their max over
-// the whole patch, then the exp, the sum and the division, and only then
-// the weighted sum of the values, tile by tile; a tile's conv1-conv3 run
-// again for it, except for the last tile, whose conv3 output is still in
-// shared memory.
+// max across the tiles. K5 has a kernel for one tile (P <= 64) and, in
+// bf16, one for several (`head_cluster_kernel`), which rounds as the plain
+// version does: the tiles of a patch run on the CTAs of a thread-block
+// cluster, each tile's logits meet through distributed shared memory
+// before the max, the exp, the sum and the division, and each CTA weights
+// the values of its own tile, whose conv3 output never left its shared
+// memory. The f32 K5 walks the tiles in one block and runs conv1-conv3
+// again for every tile but the last.
 //
 // bf16 (`trunk_wgmma_kernel`, `head_wgmma_kernel`): one patch is one
 // `wgmma` m64 tile, and each consumer warpgroup owns whole patches, so the
@@ -32,7 +33,7 @@
 //      bulk copies); three warpgroups work through patches independently;
 //      stn conv3's output only feeds the max, taken from the accumulator
 //      fragments.
-//   K5 streams its 216 KB of weights through a ring of four 16 KB slices:
+//   K5 (one tile) streams its 216 KB of weights through a ring of four 16 KB slices:
 //      a producer warpgroup (one thread copies; the warpgroup gives its
 //      registers to the others with setmaxnreg, so no accumulator spills)
 //      and two consumer warpgroups, one patch each, so a slice serves two
@@ -251,9 +252,6 @@ static_assert(PRODUCER_REGS * WG_THREADS + CONSUMER_REGS * HEAD_WGS * WG_THREADS
               "the register file of an SM");
 constexpr int HEAD_ACT = 6 * TILE;   // a warpgroup's operands: x (2 tiles), y (4)
 constexpr int HEAD_FLOATS = 64 + 4 * W;  // logits, per-warp column sums
-// the tiled kernel's: logits, softmax weights, per-warp column sums,
-// fc_query partial dot products
-constexpr int TILES_FLOATS = 2 * PMAX + 4 * W + 2 * WG_THREADS;
 constexpr size_t head_smem_bytes(int floats) {
   return 1024  // alignment slack
          + STAGES * SLICE + HEAD_WGS * (HEAD_ACT + floats * sizeof(float)) +
@@ -658,242 +656,317 @@ head_wgmma_kernel(const bf16* __restrict__ x2, const bf16* __restrict__ wq,
   }
 }
 
-// K5 for P in (64, 256]: a patch is ceil(P / 64) tiles. The logits of every
-// tile come first (conv1-conv3 and fc_query, tile by tile), then the
-// softmax over all P rows, then the weighted values from the last tile
-// back to the first, conv1-conv3 running again for every tile but the
-// last, whose conv3 output is still in act_y. The producer streams the
-// slices in that order. It takes one tile too, but `head_wgmma_kernel`,
-// which keeps a patch's softmax in registers, is faster there.
+// K5 for P in (64, 256]: a patch's T = ceil(P / 64) tiles run side by side
+// on the T CTAs of a thread-block cluster, CTA t on tile t of both patches
+// of a round (one a consumer warpgroup). Each CTA runs conv1-conv3 and
+// fc_query of its tile once; conv3's output stays in its shared memory for
+// fc_value. Each CTA stores its tile's rounded logits into the shared
+// memory of every CTA of the cluster (distributed shared memory); after a
+// cluster barrier every CTA takes the max and the sum over the P real rows
+// in the same fixed order (lane l: rows l + 32i, then the warp butterfly),
+// so all find the same s, and weights its own rows. Each CTA sums its
+// weighted values in f32 and stores that column sum into the leader's
+// (rank 0) shared memory; after the next round's barrier (or the last
+// one) the leader adds the T sums in tile order and stores the output.
+// One cluster barrier a round: the arrays it hands over are double
+// buffered by round. The leader's producer thread multicasts each weight
+// slice to the ring of every CTA (one L2 read serves 2T tiles); the
+// consumer warps of every CTA free a slot with a remote arrival on the
+// leader's `empty` barrier. The consumers arrive at a round's cluster
+// barrier after their logits and wait on it after fc_value's first half of
+// products; the producer arrives at once and waits only before its next
+// arrival, so neither the products nor the slices stop at the barrier.
+constexpr int CLUSTER_FLOATS = 2 * PMAX  // every tile's logits, two rounds
+    + 2 * 4 * W                          // the tiles' column sums, two rounds (leader)
+    + 4 * W;                             // per-warp column sums
+constexpr int CLUSTER_STAGES = 5;
+// the ring, each consumer's operands and its next x2 tile, its floats, the barriers
+constexpr size_t CLUSTER_SMEM = 1024 + CLUSTER_STAGES * SLICE +
+                                HEAD_WGS * (HEAD_ACT + TILE + CLUSTER_FLOATS * sizeof(float)) +
+                                2 * CLUSTER_STAGES * sizeof(uint64_t);
+
 __global__ void __launch_bounds__(HEAD_THREADS, 1)
-head_wgmma_tiles_kernel(const bf16* __restrict__ x2, const bf16* __restrict__ wq,
-                  const float* __restrict__ aff, const float* __restrict__ bqv,
-                  const unsigned char* __restrict__ pack, bf16* __restrict__ out,
-                  int c, int p) {
+head_cluster_kernel(const bf16* __restrict__ x2, const bf16* __restrict__ wq,
+                    const float* __restrict__ aff, const float* __restrict__ bqv,
+                    const unsigned char* __restrict__ pack, bf16* __restrict__ out, int c,
+                    int p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* slots = gm::align1024(smem_raw);
-  unsigned char* acts = slots + STAGES * SLICE;
-  float* floats = reinterpret_cast<float*>(acts + HEAD_WGS * HEAD_ACT);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(floats + HEAD_WGS * TILES_FLOATS);
-  Ring ring{slots, bars, bars + STAGES};
-  if (threadIdx.x == 0) ring.init(HEAD_WGS * WG_THREADS);
-  __syncthreads();
+  unsigned char* acts = slots + CLUSTER_STAGES * SLICE;
+  unsigned char* xbufs = acts + HEAD_WGS * HEAD_ACT;
+  float* floats = reinterpret_cast<float*>(xbufs + HEAD_WGS * TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(floats + HEAD_WGS * CLUSTER_FLOATS);
+  uint64_t* empty = full + CLUSTER_STAGES;
+  const int tiles = (p + 63) / 64;  // the cluster's CTAs
+  const uint32_t rank = gm::cluster_ctarank();  // this CTA's tile
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < CLUSTER_STAGES; ++i) {
+      gm::mbar_init(&full[i], 1);
+      gm::mbar_init(&empty[i], tiles * HEAD_WGS * 4);  // every consumer warp of the cluster
+    }
+    gm::mbar_fence_init();
+  }
+  gm::cluster_sync();  // every CTA's barriers exist before any remote use
   const int rounds = (c + HEAD_WGS - 1) / HEAD_WGS;
+  const int first = gm::cluster_id();
+  const int step = gm::cluster_count();
+  // this cluster's rounds
+  const int mine = first < rounds ? (rounds - first + step - 1) / step : 0;
   const int wg = threadIdx.x / WG_THREADS;
 
-  const int tiles = (p + 63) / 64;
-
   if (wg == HEAD_WGS) {
-    // producer: one thread copies the slices of every round of HEAD_WGS
-    // patches in the order the consumers take them: conv1-conv3 (slices
-    // 0-5) of every tile, fc_value (6-13) of the last tile, then all 14 of
-    // every other tile
+    // producer: the leader's thread multicasts the same 14 slices for every
+    // round of HEAD_WGS patches; every other producer thread leaves
     gm::setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == HEAD_WGS * WG_THREADS) {
-      auto produce = [&](int from, int to) {
-        for (int i = from; i < to; ++i) {
-          if (i == 0) ring.produce(pack, TILE);
-          else ring.produce(pack + TILE + (i - 1) * SLICE, SLICE);
+    if (rank != 0 || threadIdx.x != HEAD_WGS * WG_THREADS) return;
+    const uint16_t mask = static_cast<uint16_t>((1u << tiles) - 1);
+    const int total = mine * HEAD_SLICES;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int n = 0, k = 0; k <= mine; ++k) {
+      // before round k's barrier: up to its slice 9 (the consumers reach
+      // the barrier after slice 5); the rest of the round needs it passed
+      if (k < mine) gm::cluster_arrive();
+      for (; n < min(HEAD_SLICES * k + 10, total); ++n) {
+        const int i = n % HEAD_SLICES;
+        const uint32_t bytes = i == 0 ? TILE : SLICE;
+        gm::mbar_wait(&empty[stage], phase ^ 1);
+        for (int r = 0; r < tiles; ++r)
+          gm::mbar_arrive_expect_tx_cluster(gm::map_rank(gm::smem_u32(&full[stage]), r), bytes);
+        gm::bulk_copy_g2s_multicast(slots + stage * SLICE,
+                                    pack + (i == 0 ? 0 : TILE + (i - 1) * SLICE), bytes,
+                                    &full[stage], mask);
+        if (++stage == CLUSTER_STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
-      };
-      for (int round = blockIdx.x; round < rounds; round += gridDim.x) {
-        for (int tile = 0; tile < tiles; ++tile) produce(0, 6);
-        produce(6, HEAD_SLICES);
-        for (int tile = 1; tile < tiles; ++tile) produce(0, HEAD_SLICES);
       }
+      if (k < mine) gm::cluster_wait();
     }
+    gm::cluster_sync();  // the last round's column sums are in
+    gm::cluster_sync();  // and read
     return;
   }
 
   // consumer warpgroup `wg`: thread t, warp w, lane l. Its operands: x2
-  // and then conv2's output in act_x, conv1's and then conv3's in act_y.
+  // in xbuf (the next round's copied there while this one computes),
+  // conv2's output in act_x, conv1's and then conv3's in act_y.
   gm::setmaxnreg_inc<CONSUMER_REGS>();
   const int t = threadIdx.x % WG_THREADS;
   const int w = t >> 5;
   const int l = t & 31;
   unsigned char* act_x = acts + wg * HEAD_ACT;
   unsigned char* act_y = act_x + 2 * TILE;
+  unsigned char* xbuf = xbufs + wg * TILE;
   const uint32_t x_addr = gm::smem_u32(act_x);
   const uint32_t y_addr = gm::smem_u32(act_y);
-  float* logits = floats + wg * TILES_FLOATS;
-  float* att = logits + PMAX;
-  float* colsum = att + PMAX;  // per-warp column sums
-  float* qpart = colsum + 4 * W;  // this thread's fc_query dot products over conv3's first half
+  const uint32_t in_addr = gm::smem_u32(xbuf);
+  float* logits = floats + wg * CLUSTER_FLOATS;  // [2 rounds][PMAX rows]
+  float* sums = logits + 2 * PMAX;               // [2 rounds][4 tiles][W]
+  float* colsum = sums + 2 * 4 * W;              // [4 warps][W]
   auto sync = [wg] { gm::named_barrier(1 + wg, WG_THREADS); };
   const int r0 = 16 * w + (l >> 2);  // accumulator rows r0 and r0 + 8
   const int cl = 2 * (l & 3);        // accumulator column offset in an n8 block
   const float bq = bqv[0];
+  const float ninf = -__int_as_float(0x7f800000);
+  int stage = 0;  // the weight ring: wait on this CTA's `full`, free on the leader's `empty`
+  uint32_t phase = 0;
+  const uint32_t empty0 = gm::map_rank(gm::smem_u32(empty), 0);
 
-#pragma unroll 1
-  for (int round = blockIdx.x; round < rounds; round += gridDim.x) {
-    // the second patch of an odd last round repeats the last one, unstored
+  // the leader's output of the round before: the tiles' sums in tile order
+  auto store_out = [&](int round, int buf) {
+    if (rank != 0 || HEAD_WGS * round + wg >= c) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = t + WG_THREADS * h;
+      float s = sums[buf * 4 * W + col];
+      for (int r = 1; r < tiles; ++r) s += sums[(buf * 4 + r) * W + col];
+      out[static_cast<int64_t>(HEAD_WGS * round + wg) * W + col] = __float2bfloat16_rn(s);
+    }
+  };
+
+  // x2's rows of this CTA's tile of round `round` (the second patch of an
+  // odd last round repeats the last one, unstored), rows >= p repeating the
+  // tile's first, into xbuf by cp.async
+  auto copy_x2 = [&](int round) {
     const int patch = min(HEAD_WGS * round + wg, c - 1);
-    const bool store = HEAD_WGS * round + wg < c;
+    for (int i = t; i < 64 * 8; i += WG_THREADS) {
+      const int r = 64 * rank + (i >> 3);
+      const int64_t row = static_cast<int64_t>(patch) * p + (r < p ? r : 64 * rank);
+      gm::cp_async16(xbuf + gm::swizzle_offset(i >> 3, 8 * (i & 7), 64),
+                     x2 + row * 64 + 8 * (i & 7));
+    }
+    gm::cp_async_commit();
+  };
+  if (mine) copy_x2(first);
 
-    // conv1-conv3 of tile `tile` (x2's rows, rows >= p repeating the
-    // tile's first one): conv3's output to act_y and fc_query's logits of
-    // the tile's rows (the second visit of a tile writes them again). The
-    // loops run on p, not on a tile count: one register fewer, which keeps
-    // this kernel free of spills
-    auto convs = [&](int tile) {
-      for (int i = t; i < 64 * 8; i += WG_THREADS) {
-        const int r = 64 * tile + (i >> 3);
-        const int64_t row = static_cast<int64_t>(patch) * p + (r < p ? r : 64 * tile);
-        *reinterpret_cast<uint4*>(act_x + gm::swizzle_offset(i >> 3, 8 * (i & 7), 64)) =
-            *reinterpret_cast<const uint4*>(x2 + row * 64 + 8 * (i & 7));
-      }
-      gm::fence_proxy_async();
-      sync();
-
-      // conv1 64 -> 64 (x -> y), conv2 64 -> 128 (y -> x), +BN+relu
-      {
-        float acc[32];
-        gm::mma_ktile<64>(acc, x_addr, ring.wait());
-        ring.release();
-        store_bn_relu<64>(acc, aff, act_y, 0, r0, cl);
-      }
-      gm::fence_proxy_async();
-      sync();
-      {
-        float acc[64];
-        gm::mma_ktile<128>(acc, y_addr, ring.wait());
-        ring.release();
-        store_bn_relu<128>(acc, aff + 3 * W, act_x, 0, r0, cl);
-      }
-      gm::fence_proxy_async();
-      sync();
-
-      // conv3 128 -> 256 (x -> y), +BN; fc_query's dot product of rows r0
-      // and r0 + 8 over this thread's columns of conv3's bf16 output, kept
-      // in shared memory between the halves (not in registers across the
-      // second half's products)
-      float q0, q1;
 #pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
-        float total[64];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          float part[64];
-          gm::mma_ktile<128>(part, x_addr + k * TILE, ring.wait());
-          ring.release();
-          gm::add_partial(total, part, k);
-        }
-        q0 = half ? qpart[2 * t] : 0.f;
-        q1 = half ? qpart[2 * t + 1] : 0.f;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = 128 * half + 8 * j + cl;
-          const float2 wqc = ld2(wq + col);
-          const float2 y0 = bn_out(total[4 * j], total[4 * j + 1], aff + 6 * W, col);
-          const float2 y1 = bn_out(total[4 * j + 2], total[4 * j + 3], aff + 6 * W, col);
-          q0 = fmaf(y0.y, wqc.y, fmaf(y0.x, wqc.x, q0));
-          q1 = fmaf(y1.y, wqc.y, fmaf(y1.x, wqc.x, q1));
-          *reinterpret_cast<__nv_bfloat162*>(act_y + gm::swizzle_offset(r0, col, 64)) =
-              __float22bfloat162_rn(y0);
-          *reinterpret_cast<__nv_bfloat162*>(act_y + gm::swizzle_offset(r0 + 8, col, 64)) =
-              __float22bfloat162_rn(y1);
-        }
-        if (!half) {
-          qpart[2 * t] = q0;
-          qpart[2 * t + 1] = q1;
-        }
+  for (int k = 0; k < mine; ++k) {
+    const int round = first + k * step;
+    const int buf = k & 1;
+    gm::cp_async_wait_all();
+    gm::fence_proxy_async();
+    sync();  // this round's x2 tile is in xbuf
+
+    // one K-tile product on the next weight slice, which is then freed
+    auto mma64 = [&](float (&acc)[32], uint32_t a) {
+      gm::mbar_wait(&full[stage], phase);
+      gm::mma_ktile<64>(acc, a, gm::smem_u32(slots + stage * SLICE));
+    };
+    auto mma128 = [&](float (&acc)[64], uint32_t a) {
+      gm::mbar_wait(&full[stage], phase);
+      gm::mma_ktile<128>(acc, a, gm::smem_u32(slots + stage * SLICE));
+    };
+    auto release = [&]() {
+      __syncwarp();
+      if (l == 0) gm::mbar_arrive_cluster(empty0 + 8 * stage);
+      if (++stage == CLUSTER_STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
-      // the four lanes l % 4 of a row hold all its columns
-      q0 += __shfl_xor_sync(FULL, q0, 1);
-      q0 += __shfl_xor_sync(FULL, q0, 2);
-      q1 += __shfl_xor_sync(FULL, q1, 1);
-      q1 += __shfl_xor_sync(FULL, q1, 2);
-      if ((l & 3) == 0) {
-        logits[64 * tile + r0] = rnd<bf16>(rnd<bf16>(q0) + bq);
-        logits[64 * tile + r0 + 8] = rnd<bf16>(rnd<bf16>(q1) + bq);
-      }
-      gm::fence_proxy_async();
-      sync();
     };
 
-#pragma unroll 1
-    for (int tile = 0; 64 * tile < p; ++tile) convs(tile);
-
-    // softmax over the p real rows of all tiles, in every warp: lane l
-    // holds rows l + 32i; every step rounds to bf16, the sum accumulates
-    // in f32; warp 0 writes the weights
+    // conv1 64 -> 64 (x -> y), conv2 64 -> 128 (y -> x), +BN+relu
     {
-      const float ninf = -__int_as_float(0x7f800000);
-      float m = ninf;
+      float acc[32];
+      mma64(acc, in_addr);
+      release();
+      store_bn_relu<64>(acc, aff, act_y, 0, r0, cl);
+    }
+    gm::fence_proxy_async();
+    sync();  // conv1's output is in act_y, and xbuf is read: the next round's x2 may come
+    if (k + 1 < mine) copy_x2(round + step);
+    {
+      float acc[64];
+      mma128(acc, y_addr);
+      release();
+      store_bn_relu<128>(acc, aff + 3 * W, act_x, 0, r0, cl);
+    }
+    gm::fence_proxy_async();
+    sync();
+
+    // conv3 128 -> 256 (x -> y), +BN; fc_query's dot product of rows r0
+    // and r0 + 8 over this thread's columns of conv3's bf16 output
+    float q0 = 0.f, q1 = 0.f;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float total[64];
 #pragma unroll
-      for (int i = 0; i < PMAX / 32; ++i) {
-        const int r = l + 32 * i;
-        m = fmaxf(m, r < p ? logits[r] : ninf);
+      for (int kt = 0; kt < 2; ++kt) {
+        float part[64];
+        mma128(part, x_addr + kt * TILE);
+        release();
+        gm::add_partial(total, part, kt);
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < PMAX / 32; ++i) {
-        const int r = l + 32 * i;
-        s += r < p ? rnd<bf16>(expf(rnd<bf16>(logits[r] - m))) : 0.f;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-      s = rnd<bf16>(s);
-      if (w == 0) {
-#pragma unroll
-        for (int i = 0; i < PMAX / 32; ++i) {
-          const int r = l + 32 * i;
-          const float e = r < p ? rnd<bf16>(expf(rnd<bf16>(logits[r] - m))) : 0.f;
-          att[r] = rnd<bf16>(e / s);
-        }
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * half + 8 * j + cl;
+        const float2 wqc = ld2(wq + col);
+        const float2 y0 = bn_out(total[4 * j], total[4 * j + 1], aff + 6 * W, col);
+        const float2 y1 = bn_out(total[4 * j + 2], total[4 * j + 3], aff + 6 * W, col);
+        q0 = fmaf(y0.y, wqc.y, fmaf(y0.x, wqc.x, q0));
+        q1 = fmaf(y1.y, wqc.y, fmaf(y1.x, wqc.x, q1));
+        *reinterpret_cast<__nv_bfloat162*>(act_y + gm::swizzle_offset(r0, col, 64)) =
+            __float22bfloat162_rn(y0);
+        *reinterpret_cast<__nv_bfloat162*>(act_y + gm::swizzle_offset(r0 + 8, col, 64)) =
+            __float22bfloat162_rn(y1);
       }
     }
-    sync();
+    // the four lanes l % 4 of a row hold all its columns; lane l % 4 == 0
+    // stores the row's rounded logit into every CTA's array (the tile's
+    // sum, at the end of the round, goes to the leader)
+    q0 += __shfl_xor_sync(FULL, q0, 1);
+    q0 += __shfl_xor_sync(FULL, q0, 2);
+    q1 += __shfl_xor_sync(FULL, q1, 1);
+    q1 += __shfl_xor_sync(FULL, q1, 2);
+    if ((l & 3) == 0) {
+      const float v0 = rnd<bf16>(rnd<bf16>(q0) + bq), v1 = rnd<bf16>(rnd<bf16>(q1) + bq);
+      const uint32_t at = gm::smem_u32(logits + PMAX * buf + 64 * rank + r0);
+      for (int r = 0; r < tiles; ++r) {
+        gm::st_cluster(gm::map_rank(at, r), v0);
+        gm::st_cluster(gm::map_rank(at + 32, r), v1);
+      }
+    }
+    gm::fence_proxy_async();
+    sync();  // conv3's output is in act_y for fc_value
+    gm::cluster_arrive();
 
     // fc_value 256 -> 256 (y), each rounded value weighted by its row's
     // softmax weight and summed over the rows in f32: over rows r0, r0 + 8,
-    // then the 8 lanes of a column, then the tiles (the last one first:
-    // its conv3 output is still in act_y), then the 4 warps
+    // then the 8 lanes of a column, then the 4 warps. The first half's
+    // products run before the cluster barrier is waited on: the weights
+    // enter only its epilogue.
+    float a0 = 0.f, a1 = 0.f;  // the softmax weights of this tile's rows r0 and r0 + 8
 #pragma unroll 1
-    for (int tile = (p - 1) >> 6; tile >= 0; --tile) {
-      if (64 * tile + 64 < p) convs(tile);
-#pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
-        float total[64];
+    for (int half = 0; half < 2; ++half) {
+      float total[64];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float part[64];
-          gm::mma_ktile<128>(part, y_addr + k * TILE, ring.wait());
-          ring.release();
-          gm::add_partial(total, part, k);
-        }
-        // the softmax weights of rows r0 and r0 + 8, read after the products
-        const float a0 = att[64 * tile + r0], a1 = att[64 * tile + r0 + 8];
+      for (int kt = 0; kt < 4; ++kt) {
+        float part[64];
+        mma128(part, y_addr + kt * TILE);
+        release();
+        gm::add_partial(total, part, kt);
+      }
+      if (half == 0) {
+        gm::cluster_wait();  // every tile's logits of this round are in, the sums of the last
+        if (k) store_out(round - step, buf ^ 1);
+
+        // softmax over the p real rows of all tiles, in every warp: lane
+        // l holds rows l + 32i; every step rounds to bf16, the sum
+        // accumulates in f32 in that fixed order
+        const float* lg = logits + PMAX * buf;
+        float e[PMAX / 32];
+        float m = ninf;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = 128 * half + 8 * j + cl;
-          const float2 b = ld2(bqv + W + col);
-          const float2 y0 = value_out(total[4 * j], total[4 * j + 1], b);
-          const float2 y1 = value_out(total[4 * j + 2], total[4 * j + 3], b);
-          const float2 sum = lane_reduce(
-              make_float2(__fadd_rn(__fmul_rn(a0, y0.x), __fmul_rn(a1, y1.x)),
-                          __fadd_rn(__fmul_rn(a0, y0.y), __fmul_rn(a1, y1.y))),
-              [](float a, float b) { return a + b; });
-          if (l < 4) {
-            float2* cs = reinterpret_cast<float2*>(colsum + w * W + col);
-            *cs = 64 * tile + 64 >= p ? sum : make_float2(cs->x + sum.x, cs->y + sum.y);
-          }
+        for (int i = 0; i < PMAX / 32; ++i) {
+          e[i] = l + 32 * i < p ? lg[l + 32 * i] : ninf;
+          m = fmaxf(m, e[i]);
         }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < PMAX / 32; ++i) {
+          e[i] = l + 32 * i < p ? rnd<bf16>(expf(rnd<bf16>(e[i] - m))) : 0.f;
+          s += e[i];
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+        s = rnd<bf16>(s);
+        // this tile's rows l and l + 32 are rows l + 32 (2 rank) and
+        // l + 32 (2 rank + 1); warps 0-1 hold rows 0-31, warps 2-3 rows 32-63
+        float mine_e = 0.f;
+#pragma unroll
+        for (int i = 0; i < PMAX / 32; ++i)
+          if (i == 2 * static_cast<int>(rank) + (w >> 1)) mine_e = e[i];
+        const float weight = rnd<bf16>(mine_e / s);
+        a0 = __shfl_sync(FULL, weight, r0 & 31);
+        a1 = __shfl_sync(FULL, weight, (r0 + 8) & 31);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * half + 8 * j + cl;
+        const float2 b = ld2(bqv + W + col);
+        const float2 y0 = value_out(total[4 * j], total[4 * j + 1], b);
+        const float2 y1 = value_out(total[4 * j + 2], total[4 * j + 3], b);
+        const float2 sum = lane_reduce(
+            make_float2(__fadd_rn(__fmul_rn(a0, y0.x), __fmul_rn(a1, y1.x)),
+                        __fadd_rn(__fmul_rn(a0, y0.y), __fmul_rn(a1, y1.y))),
+            [](float a, float b) { return a + b; });
+        if (l < 4) *reinterpret_cast<float2*>(colsum + w * W + col) = sum;
       }
     }
     sync();
-    if (store) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = t + WG_THREADS * h;
-        const float s = colsum[col] + colsum[W + col] + colsum[2 * W + col] + colsum[3 * W + col];
-        out[static_cast<int64_t>(patch) * W + col] = __float2bfloat16_rn(s);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int col = t + WG_THREADS * h;
+      gm::st_cluster(gm::map_rank(gm::smem_u32(sums + (buf * 4 + rank) * W + col), 0),
+                     colsum[col] + colsum[W + col] + colsum[2 * W + col] + colsum[3 * W + col]);
     }
-    sync();
   }
+  gm::cluster_sync();  // the last round's sums are in
+  if (mine) store_out(first + (mine - 1) * step, (mine - 1) & 1);
+  gm::cluster_sync();  // no CTA leaves while the leader may still take its stores
 }
 
 cudaError_t sm_count(int* sms) {
@@ -958,19 +1031,82 @@ cudaError_t launch_trunk_bf16(const void* patches, const void* w0a, const void* 
   return cudaGetLastError();
 }
 
+// `head_cluster_kernel`'s launch for c patches of 64 < p <= 256 points:
+// `cluster` = ceil(p / 64) CTAs a cluster, `active` clusters the card
+// holds at once, `blocks` in the grid. `cfg` and `attr` are filled for the
+// launch.
+cudaError_t cluster_grid(int c, int p, int* cluster, int* active, int* blocks,
+                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const int rounds = (c + HEAD_WGS - 1) / HEAD_WGS;
+  const size_t smem = CLUSTER_SMEM;
+  cudaError_t err;
+  // the attribute and the clusters of each size that fit, once per device
+  static int cached_device = -1;
+  static int cached_active[PMAX / 64 + 1] = {};
+  int device = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if (device != cached_device) {
+    if ((err = cudaFuncSetAttribute(head_cluster_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess)
+      return err;
+    for (int& a : cached_active) a = 0;
+    cached_device = device;
+  }
+  *cluster = (p + 63) / 64;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = *cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(*cluster);
+  cfg->blockDim = dim3(HEAD_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  // how many clusters fit at once depends on the card's GPC layout
+  if (!cached_active[*cluster] &&
+      (err = cudaOccupancyMaxActiveClusters(&cached_active[*cluster],
+                                            reinterpret_cast<const void*>(head_cluster_kernel),
+                                            cfg)) != cudaSuccess)
+    return err;
+  *active = cached_active[*cluster];
+  if (*active < 1) return cudaErrorInvalidConfiguration;
+  *blocks = min(rounds, *active) * *cluster;
+  cfg->gridDim = dim3(*blocks);
+  return cudaSuccess;
+}
+
+cudaError_t launch_head_cluster(const void* x2, const void* wq, const void* aff,
+                                const void* bqv, const void* pack, void* out, int c, int p,
+                                cudaStream_t stream) {
+  int cluster = 0, active = 0, blocks = 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_grid(c, p, &cluster, &active, &blocks, &cfg, attr);
+  if (err != cudaSuccess) return err;
+  cfg.stream = stream;
+  if ((err = cudaLaunchKernelEx(&cfg, head_cluster_kernel, static_cast<const bf16*>(x2),
+                                static_cast<const bf16*>(wq), static_cast<const float*>(aff),
+                                static_cast<const float*>(bqv),
+                                static_cast<const unsigned char*>(pack), static_cast<bf16*>(out),
+                                c, p)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
 cudaError_t launch_head_bf16(const void* x2, const void* wq, const void* aff,
                              const void* bqv, const void* pack, void* out, int c, int p,
                              cudaStream_t stream) {
-  const bool tiles = p > 64;
-  const auto kernel = tiles ? head_wgmma_tiles_kernel : head_wgmma_kernel;
-  const size_t smem = head_smem_bytes(tiles ? TILES_FLOATS : HEAD_FLOATS);
+  if (p > 64) return launch_head_cluster(x2, wq, aff, bqv, pack, out, c, p, stream);
+  const size_t smem = head_smem_bytes(HEAD_FLOATS);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      head_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   const int blocks = min((c + HEAD_WGS - 1) / HEAD_WGS, sms);
-  kernel<<<blocks, HEAD_THREADS, smem, stream>>>(
+  head_wgmma_kernel<<<blocks, HEAD_THREADS, smem, stream>>>(
       static_cast<const bf16*>(x2), static_cast<const bf16*>(wq),
       static_cast<const float*>(aff), static_cast<const float*>(bqv),
       static_cast<const unsigned char*>(pack), static_cast<bf16*>(out), c, p);
@@ -1006,4 +1142,24 @@ extern "C" int ppsurf_pointnet_head(const void* x2, const void* wc1,
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch_head_bf16(x2, wq, aff, bqv, pack, out, c, p, s);
   return launch_head<float>(x2, wc1, wc2, wc3, wq, wv, aff, bqv, out, c, p, s);
+}
+
+// the cluster K5's launch for c patches of 64 < p <= 256 points: out[0]
+// the CTAs a cluster, out[1] the clusters the card holds at once, out[2]
+// the grid's blocks, out[3] the weight bytes a launch streams by design
+// (14 slices a round of two patches, multicast to the cluster): a count
+// from the constants, not a measurement
+extern "C" int ppsurf_pointnet_head_info(int c, int p, long long* out) {
+  if (p <= 64 || p > PMAX || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int cluster = 0, active = 0, blocks = 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const cudaError_t err = cluster_grid(c, p, &cluster, &active, &blocks, &cfg, attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = cluster;
+  out[1] = active;
+  out[2] = blocks;
+  out[3] = static_cast<long long>((c + HEAD_WGS - 1) / HEAD_WGS) *
+           (TILE + (HEAD_SLICES - 1) * SLICE);
+  return 0;
 }

@@ -46,13 +46,23 @@ while its bytes (latent table, ids, output) move in well under 0.1 ms.
 - f32: one block of 256 threads a query, each thread an 8 x 8 register
   tile of every product on the CUDA cores (f32 FMA, 67 TFLOP/s peak).
   TF32 tensor cores would miss the f32 limit the field is held to.
-- L=32, f32 and bf16 (`decoder_tail_narrow_kernel`): 64 rows x 5 216
-  multiply-adds a query, 33 GFLOP at C=50 048, 0.5 ms at the f32 FMA
-  peak; the gathered latents are 0.4 GB in f32, most of them served by
-  the L2. One thread a neighbour row holds the row's 32 activations in
-  registers and runs every product as f32 FMA against weights kept once
-  a block in shared memory (broadcast reads); four queries a block, a
-  named barrier each, persistent blocks.
+- L=32 (POCO): 64 rows x 5 216 multiply-adds a query, 33 GFLOP at
+  C=50 048 (0.034 ms on the bf16 tensor cores, 0.5 ms at the f32 FMA
+  peak); the gathered latents are 0.2 GB in bf16, most of them served by
+  the L2. What bounds the bf16 build is the softmax: 4 096 exponentials
+  and 4 096 divisions a query on the SFU (16 a clock an SM), about
+  0.1 ms a chunk. bf16 (`decoder_tail_narrow_wgmma_kernel`): one warpgroup a
+  query, its 64 rows one `wgmma` m64 tile; fc2, fc3, fc_value
+  (m64n32k16) and fc_query (m64n64k16) take A from registers, each
+  product's rounded output fragment the next one's operand, and the
+  20 KB of weights (`pack_l32_weights`) stay in shared memory; h1 is made
+  on the CUDA cores from the gathered rows, which cp.async copies a query
+  ahead; the per-head softmax runs on the fc_query fragments, each
+  exponential once. f32 (`decoder_tail_narrow_kernel`): one thread a
+  neighbour row holds the row's 32 activations in registers and runs
+  every product as f32 FMA against weights kept once a block in shared
+  memory (broadcast reads); four queries a block, a named barrier each,
+  persistent blocks.
 
 Rounding follows the plain version below and `decoder_pallas.py:22-26,
 38-46, 72-80`: every product accumulates in f32 and rounds to the compute
@@ -72,10 +82,11 @@ from ppsurf_tpu_torch.ops import kernels
 from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, weight_tile
 
 
-# (latent width, heads) of the builds: the bf16 one at WGMMA_SHAPE runs on
-# the tensor cores and needs `wpack`
+# (latent width, heads) of the builds; in bf16 both run on the tensor cores
+# and need `wpack`
 SHAPES = ((256, 64), (32, 64))
 WGMMA_SHAPE = (256, 64)
+L32_SHAPE = (32, 64)
 KMAX = 64  # neighbours a query
 
 
@@ -83,7 +94,8 @@ KMAX = 64  # neighbours a query
 class DecoderTables:
     """Decoder-tail weights in the compute dtype (biases f32, rounded to
     it): w1 (3, L) rel rows of fc1; w* (in, out); in bf16 also `wpack`,
-    w2, w3, wq and wv in the tensor-core kernel's operand layout."""
+    w2, w3, wq and wv in the tensor-core kernel's operand layout
+    (`pack_wgmma_weights` at L=256, `pack_l32_weights` at L=32)."""
 
     dt: torch.dtype
     w1: torch.Tensor
@@ -115,6 +127,19 @@ def pack_wgmma_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
                      + column_halves(wv)).contiguous()
 
 
+def pack_l32_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
+                     wv: torch.Tensor) -> torch.Tensor:
+    """The latent-32 bf16 kernel's resident weights, 20 KB: W2, W3 (one
+    (32 x 64) tile each), Wq (one (64 x 64) tile), Wv (one (32 x 64) tile),
+    each a tile of `ops/wgmma_layout.py` whose K of 32 is padded with 32
+    zero inputs; the kernel multiplies only the first 32."""
+    def tile(w):
+        padded = torch.cat([w, torch.zeros_like(w)])  # (64, out)
+        return weight_tile(padded, slice(None), 0)
+
+    return torch.cat([tile(w2), tile(w3), tile(wq), tile(wv)]).contiguous()
+
+
 @torch.no_grad()
 def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
     """Tables from an `InterpAttentionKHeadsNet` (fc1 is (L+3, L))."""
@@ -135,6 +160,8 @@ def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
     )
     if dt == torch.bfloat16 and (lat, t.heads) == WGMMA_SHAPE:
         t.wpack = pack_wgmma_weights(t.w2, t.w3, t.wq, t.wv)
+    elif dt == torch.bfloat16 and (lat, t.heads) == L32_SHAPE:
+        t.wpack = pack_l32_weights(t.w2, t.w3, t.wq, t.wv)
     return t
 
 
@@ -153,6 +180,19 @@ def decoder_tail_plain(latents: torch.Tensor, pts: torch.Tensor,
     vv = dense(h, t.wv, t.bv, dt)  # (C, k, L)
     att = softmax(qv, 1, dt).mean(dim=-1).to(dt).float()  # (C, k)
     return (att[..., None] * vv.float()).sum(dim=1).to(dt)
+
+
+def _check(t: DecoderTables, lat: int, k: int) -> None:
+    """Raise unless the kernel is built for these tables and k, and bf16
+    tables carry their weight pack on the card."""
+    if not 1 <= k <= KMAX or (lat, t.heads) not in SHAPES:
+        raise ValueError(
+            f"decoder_tail kernel is built for 1 <= k <= {KMAX} and (L, heads) in "
+            f"{SHAPES}; got k={k}, L={lat}, heads={t.heads}"
+        )
+    if t.dt == torch.bfloat16 and (t.wpack is None or not t.wpack.is_cuda):
+        raise ValueError("decoder_tail: bf16 tables need `wpack` on the card "
+                         "(made by decoder_tables)")
 
 
 def decoder_tail(latents: torch.Tensor, pts: torch.Tensor, queries: torch.Tensor,
@@ -176,15 +216,7 @@ def decoder_tail(latents: torch.Tensor, pts: torch.Tensor, queries: torch.Tensor
          "wv": t.dt, "b2": torch.float32, "b3": torch.float32,
          "bq": torch.float32, "bv": torch.float32},
     )
-    if not 1 <= k <= KMAX or (lat, t.heads) not in SHAPES:
-        raise ValueError(
-            f"decoder_tail kernel is built for 1 <= k <= {KMAX} and (L, heads) in "
-            f"{SHAPES}; got k={k}, L={lat}, heads={t.heads}"
-        )
-    if (t.dt == torch.bfloat16 and (lat, t.heads) == WGMMA_SHAPE
-            and (t.wpack is None or not t.wpack.is_cuda)):
-        raise ValueError("decoder_tail: bf16 tables need `wpack` on the card "
-                         "(made by decoder_tables)")
+    _check(t, lat, k)
     out = torch.empty((c, lat), dtype=t.dt, device=latents.device)
     if c:
         kernels.launch(

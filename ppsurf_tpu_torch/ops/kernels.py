@@ -68,6 +68,14 @@ _SIGNATURES = {
     # cand, out, q, ncand, k, variant (index in EXTRACT_VARIANTS), stream
     "ppsurf_extract": [_P, _P, _I, _I, _I, _I, _P],
 }
+# launch shapes (`launch_info`): (int arguments) -> 4 long longs
+_INFO = {
+    # c, p (64 < p <= 256): CTAs a cluster, clusters at once, grid blocks,
+    # weight bytes a launch streams by design
+    "ppsurf_pointnet_head_info": 2,
+    # c: 1, blocks an SM, grid blocks, weight bytes a launch streams by design
+    "ppsurf_decoder_tail_l32_info": 1,
+}
 
 
 class KernelLibrary:
@@ -81,6 +89,10 @@ class KernelLibrary:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        for name, ints in _INFO.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = [_I] * ints + [_P]
             fn.restype = ctypes.c_int
         self.lib.ppsurf_error_string.argtypes = [ctypes.c_int]
         self.lib.ppsurf_error_string.restype = ctypes.c_char_p
@@ -173,6 +185,21 @@ def launch(kernel: str, symbol: str, *args) -> None:
         msg = lib.lib.ppsurf_error_string(rc).decode()
         raise RuntimeError(f"{symbol} launch failed: {msg} (cudaError {rc})")
     LAUNCHES[kernel] += 1
+
+
+def launch_info(symbol: str, *args: int) -> typing.List[int]:
+    """How C entry `symbol` (a key of `_INFO`) would launch for `args`:
+    its CTAs a cluster, the clusters (or blocks an SM) the card holds at
+    once, the grid's blocks and the weight bytes a launch streams by design
+    (a count from the kernel's constants, not a measurement). Launches
+    nothing."""
+    lib = build()
+    out = (ctypes.c_longlong * 4)()
+    rc = getattr(lib.lib, symbol)(*args, out)
+    if rc != 0:
+        msg = lib.lib.ppsurf_error_string(rc).decode()
+        raise RuntimeError(f"{symbol} failed: {msg} (cudaError {rc})")
+    return list(out)
 
 
 def reset_launches() -> None:

@@ -25,14 +25,24 @@ masked out of the softmax (the TPU's padding of P to 56, a Mosaic tiling
 constraint, and its `p_real` mask, `pointnet_pallas.py:90-95`, become
 this). P=50 is one tile; the 100NN and 200NN configurations take two and
 four. K4 takes its max across the tiles. K5 must round as the plain
-version does, so for P > 64 (`head_wgmma_tiles_kernel` in bf16) it
-computes the logits of every tile first, takes their max over the whole
-patch, then the exp, the sum and the division, and only then weights the
-values tile by tile; conv1-conv3 of every tile but the last run twice
-(about 40% more work). An online softmax, rescaling a running sum tile
-by tile, would round differently in bf16. For one tile the bf16 K5 keeps
-its own kernel, which holds the softmax in registers: the tiled kernel
-read 3.8 ms there against 2.8 ms (PERF.md, Findings).
+version does: the max and the sum of the softmax come over all P rows
+before any weight exists (an online softmax, rescaling a running sum tile
+by tile, would round differently in bf16). For P > 64 the bf16 K5
+(`head_cluster_kernel`) runs a patch's T = ceil(P/64) tiles side by side
+on the T CTAs of a thread-block cluster: each CTA computes conv1-conv3
+and the logits of its tile once, stores the logits into every CTA's
+shared memory (distributed shared memory), and after a cluster barrier
+each takes the max and the sum over all P rows in the same order, weights
+its own tile's values (its conv3 output never left its shared memory) and
+sends its column sums to the leader, which adds them in tile order. One
+producer thread multicasts each weight slice to all T CTAs, so one L2
+read serves 2T tiles: 216 KB a round of two patches, as for one tile.
+The cluster is launched with a runtime size (`cudaLaunchKernelEx`) and
+the grid holds as many clusters as `cudaOccupancyMaxActiveClusters` says
+fit (30 of 4 CTAs on the H100, PERF.md). For one tile the bf16 K5 keeps
+its own kernel, which holds the softmax in registers. The f32 K5 walks a
+patch's tiles in one block and computes conv1-conv3 again for every tile
+but the last.
 
 What bounds them on an H100: operations. Per patch K4 is about 4.9 MFLOP
 and K5 about 11.1 MFLOP, 0.25 and 0.56 TFLOP per 50 048-query chunk —

@@ -257,8 +257,8 @@ def test_kernels_match_plain_versions_on_the_card():
     assert torch.equal(extract(cand, "full", 64), extract_plain(cand, "full", 64))
 
     # K3 at L=32 (POCO's seeded weights) and L=256, at k < 64; K4/K5 at
-    # P > 64 (two to four 64-row tiles), f32 to 1e-4 and bf16 within the
-    # smoke's limits
+    # P > 64 (two to four 64-row tiles; the bf16 K5 a cluster of as many
+    # CTAs), f32 to 1e-4 and bf16 within the smoke's limits
     from ppsurf_tpu_torch.convert.init import init_variables
     from ppsurf_tpu_torch.train.model import poco_spec
 
@@ -279,7 +279,7 @@ def test_kernels_match_plain_versions_on_the_card():
                 assert agree(decoder_tail(lat_w, pts, q701, ids_k, tabs),
                              decoder_tail_plain(lat_w, pts, q701, ids_k, tabs)), (width, k, dt)
         pt_dt = pt16 if dt == torch.bfloat16 else pt
-        for p in (65, 100, 200):
+        for p in (65, 100, 129, 200, 256):
             patches = patch_space(pts[ids256[:, :p]], q701).to(dt)
             b_p, pool_p = pointnet_trunk_plain(patches, pt_dt)
             b_k, pool_k = pointnet_trunk(patches, pt_dt)

@@ -16,6 +16,12 @@
   small integers), so the comparison sees the model's masking, row
   mapping and rounding, not the order of the sums.
 - A bf16 call without its pack is refused before any launch.
+- A model of the cluster K5 (P > 64: a patch's tiles on the CTAs of a
+  thread-block cluster) equals `pointnet_head_plain` within the smoke's
+  bf16 limits at every cluster size and with last tiles of 1 to 64 rows:
+  each tile's logits, one max and sum over all tiles' rows in every warp
+  (lane l: rows l + 32i), each tile's weighted values summed over its
+  fragments and warps, the tiles' sums added in tile order.
 """
 from __future__ import annotations
 
@@ -230,3 +236,65 @@ def test_head_fragment_pooling_equals_the_plain_version(p):
     # the rows past p are masked out: other logits and values there change nothing
     lpad[:, p:], vpad[:, p:] = 30.0, 1e4
     assert torch.equal(head_pool_model(lpad, vpad, p).to(BF16), plain)
+
+
+def head_cluster_model(logit: torch.Tensor, value: torch.Tensor, p: int) -> torch.Tensor:
+    """The cluster K5's pooling from the (C, 64T) rounded logits and the
+    (C, 64T, 256) rounded fc_value outputs of a patch's T tiles (a tile's
+    rows >= p repeat its first): in every warp of every CTA, lane l holds
+    rows l + 32i (i < 8, rows >= p masked): the max, the exps, their sum
+    over i in order, the lane butterflies; tile t's rows take their
+    lane's weight; each tile's weighted rows are summed over the
+    fragments, the lanes and the 4 warps, and the tiles' sums in order."""
+    c, rows_t = logit.shape
+    tiles = rows_t // 64
+    lanes = torch.arange(32)
+    lg = torch.full((c, 256), -torch.inf)
+    lg[:, :rows_t] = logit
+    rows = lanes[None, :] + 32 * torch.arange(8)[:, None]  # (8, 32): lane l's rows
+    real = rows < p
+    x = torch.where(real, lg[:, rows], -torch.inf)  # (C, 8, 32)
+    m = _butterfly(x.amax(dim=1), (16, 8, 4, 2, 1), torch.maximum)  # (C, 32)
+    e = torch.where(real, _rnd(torch.exp(_rnd(x - m[:, None]))), 0.0)
+    s = torch.zeros(c, 32)
+    for i in range(8):
+        s = s + e[:, i]
+    s = _rnd(_butterfly(s, (16, 8, 4, 2, 1), torch.add))
+    weight = _rnd(e / s[:, None])  # (C, 8, 32): row l + 32i
+    total = None
+    for t in range(tiles):
+        att = weight[:, 2 * t:2 * t + 2].reshape(c, 64)  # the tile's rows in order
+        v = value[:, 64 * t:64 * (t + 1)]
+        a0, a1 = att[:, R0], att[:, R0 + 8]
+        per_warp = _fragment_reduce(lambda col: a0 * v[:, R0, col],
+                                    lambda col: a1 * v[:, R0 + 8, col], torch.add)
+        tile_sum = per_warp[:, 0] + per_warp[:, 1] + per_warp[:, 2] + per_warp[:, 3]
+        total = tile_sum if total is None else total + tile_sum
+    return _rnd(total)
+
+
+@pytest.mark.parametrize("p", [65, 100, 128, 129, 192, 200, 256])
+def test_head_cluster_model_equals_the_plain_version(p):
+    t = _tables(BF16)
+    rng = np.random.RandomState(200 + p)
+    c = 12
+    x2 = torch.from_numpy(rng.randn(c, p, 64).astype(np.float32)).to(BF16)
+    x = x2
+    for layer in range(3):  # the layers of pointnet_head_plain
+        x = pn._dense_bn(x, t.head_w[layer], t.head_aff, layer, t.dt, relu=layer < 2)
+    logit = pn.dense(x, t.head_w[3], t.bqv[0, :1], t.dt)[..., 0].float()
+    value = pn.dense(x, t.head_w[4], t.bqv[1], t.dt).float()
+    tiles = -(-p // 64)
+    # the kernel's rows: tile t holds rows 64t.. of the patch, past p its first
+    rows = torch.tensor([r if r < p else 64 * (r // 64) for r in range(64 * tiles)])
+    lpad, vpad = logit[:, rows], value[:, rows]
+    plain = pn.pointnet_head_plain(x2, t).float()
+    model = head_cluster_model(lpad, vpad, p).float()
+    scale = max(1.0, float(plain.abs().max()))
+    diff = (model - plain).abs()
+    assert float(diff.max()) <= 1.6e-2 * scale  # the smoke's bf16 limits
+    assert float(diff.mean()) <= 2e-6 * scale
+    # the rows past p are masked out: other logits and values there change nothing
+    pad = torch.arange(64 * tiles) >= p
+    lpad[:, pad], vpad[:, pad] = 30.0, 1e4
+    assert torch.equal(head_cluster_model(lpad, vpad, p), model.to(BF16))

@@ -72,8 +72,12 @@ In order, it:
    k=200, K4/K5 on four tiles);
 10. reconstructs a 40-point cloud (K3 at k=40, patch P=40) at res 33;
 11. runs `python -m ppsurf_tpu_torch.cli predict` with config stacking on
-    a two-shape dataset written to a temporary directory and checks the
-    paths of the meshes it writes;
+    a two-shape dataset written to a temporary directory, with ground truth
+    in its `03_meshes` (the port's host marching cubes of the exact
+    distance to the torus and sphere the clouds are drawn from, at res
+    257), and checks the paths of the meshes it
+    writes, its four score tables (one finite row a shape) and W1's 4
+    launches a shape;
 12. trains PPSurf 50NN at full width (batch 10, 10 000 manifold points,
     all 2 000 queries of a shape, P=50, k=64, bf16, AdamW) on 24 seeded
     analytic solids (spheres, tori, ellipsoids at random poses, 20k-60k
@@ -89,12 +93,26 @@ In order, it:
     kNN's, the loss, gradients, parameters and statistics within the
     stated limits); `cli test` on the checkpoint (its CSV and xlsx report)
     and `cli rec` of a test shape from `last.pt`, through K1 and K3-K5;
-13. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
+13. scores: W1 (the winding number of the IoU and F1 metrics) against its
+    plain version on the card at the metrics' shape (100 000 seed-42 cube
+    samples against the 50NN mesh of phase 4: |w - plain| <= 1e-4, inside
+    masks equal wherever |plain - 0.5| > 1e-3), then on faces no tile
+    divides, a single face, degenerate faces, queries on vertices and odd
+    query counts under the same limits; W1 no further than twice its plain
+    version (or 1e-5) from a float64 winding number on 2048 of the
+    samples, and on a soup of large triangles where f32 cancels; W1's time (CUDA events, median of
+    5) and the plain version's (one call), its bound and the SFU floor of
+    its square roots; then scores the 50NN mesh against the ground truth
+    (Chamfer, IoU, F1, normal error, seconds each; W1 must launch 4 times),
+    the ground truth meshed at res 129 (IoU and F1 at least 0.99) and the
+    ground truth against itself (Chamfer 0, IoU 1, F1 1 exactly, normal
+    error under 0.05 rad);
+14. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
 
-Phases 4, 7-11 and each part of 12 reset every kernel's launch count just
-before they run and read it just after; each fails if a kernel of its path
-did not launch.
+Phases 4, 7-11, each part of 12 and each scoring of 13 reset every
+kernel's launch count just before they run and read it just after; each
+fails if a kernel of its path did not launch.
 
 Any failure exits non-zero before that last line. It needs one CUDA card
 and the repository checkout around it; it imports nothing of JAX.
@@ -158,6 +176,24 @@ def torus_cloud(n: int, seed: int):
     sphere = d / np.linalg.norm(d, axis=1, keepdims=True) * 0.15 + [0.3, 0.0, 0.25]
     pts = np.concatenate([torus, sphere]) + rng.randn(n, 3) * 1e-3
     return pts.astype(np.float32)
+
+
+def torus_gt_mesh(res: int):
+    """Ground truth of `torus_cloud`: the port's host marching cubes of the
+    exact distance to its torus and sphere (two disjoint closed surfaces,
+    the torus 0.027 from the sphere) on a res^3 grid over the unit cube."""
+    import numpy as np
+
+    from ppsurf_tpu_torch.io.ply import Mesh
+    from ppsurf_tpu_torch.recon.marching_cubes import marching_cubes
+
+    x = np.linspace(-0.5, 0.5, res)
+    gx, gy, gz = np.meshgrid(x, x, x, indexing="ij")
+    ring = np.sqrt((gx + 0.1) ** 2 + gy ** 2) - 0.28
+    torus = np.sqrt(ring ** 2 + gz ** 2) - 0.1
+    sphere = np.sqrt((gx - 0.3) ** 2 + gy ** 2 + (gz - 0.25) ** 2) - 0.15
+    verts, faces = marching_cubes(np.minimum(torus, sphere), 0.0)
+    return Mesh(vertices=(verts / (res - 1) - 0.5).astype(np.float32), faces=faces)
 
 
 def cuda_ms(fn, reps: int = 5, warmup: int = 1, batch: int = 1) -> float:
@@ -841,6 +877,178 @@ def training_phase(tmp: str, smi: str, profile: typing.Optional[str]) -> dict:
     return out
 
 
+# the scoring phase: cube samples of IoU/F1 (`metrics/mesh_metrics.py`),
+# W1's limits against its plain version, and the operations of one (query,
+# face) pair: 9 differences, 3 norms (3 products, 2 sums), b x c (6, 3),
+# a . (b x c) (3, 2), 3 dot products (3, 2), the denominator (5 products,
+# 3 sums), the arctangent, its doubling and the running sum
+SCORE_SAMPLES = 100000
+GT_RESOLUTION = 257
+SCORE_TABLES = ("chamfer_distance", "f1", "iou", "normal_error")
+W1_ATOL, W1_BAND = 1e-4, 1e-3
+W1_OPS_PER_PAIR = 64
+W1_SQRT_PER_PAIR = 3
+
+
+def winding_f64(q, a, b, c):
+    """The winding number in float64 (the reference W1 and its plain
+    version are both held to; the same formula, 256 queries x 8192 faces
+    a step)."""
+    import math
+
+    import torch
+
+    q, a, b, c = (t.double() for t in (q, a, b, c))
+    out = []
+    for qq in q.split(256):
+        acc = torch.zeros(qq.shape[0], dtype=torch.float64, device=q.device)
+        for s in range(0, a.shape[0], 8192):
+            x, y, z = (t[s:s + 8192][None] - qq[:, None] for t in (a, b, c))
+            lx, ly, lz = x.norm(dim=-1), y.norm(dim=-1), z.norm(dim=-1)
+            num = (x * torch.linalg.cross(y, z)).sum(-1)
+            den = (lx * ly * lz + (x * y).sum(-1) * lz + (y * z).sum(-1) * lx
+                   + (z * x).sum(-1) * ly)
+            acc += 2.0 * torch.atan2(num, den).sum(-1)
+        out.append(acc / (4.0 * math.pi))
+    return torch.cat(out)
+
+
+def winding_checks(check, results, gen, dev, mesh) -> None:
+    """W1 against its plain version on the card: the production shape (the
+    metrics' 100 000 seed-42 cube samples against the 50NN mesh), then
+    faces no tile divides, a single face, degenerate faces, queries on
+    vertices and query counts no block divides. |w - plain| <= W1_ATOL, and
+    the inside masks equal wherever |plain - 0.5| > W1_BAND. On 2048 of the
+    samples, and on a soup of large triangles, W1 against float64."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch.metrics.mesh_metrics import _occupancy_samples
+    from ppsurf_tpu_torch.ops.winding import winding, winding_plain
+
+    v = torch.from_numpy(mesh.vertices).to(dev)
+    f = torch.from_numpy(mesh.faces.astype(np.int64)).to(dev)
+    tri = [v[f[:, i]].contiguous() for i in range(3)]
+    q = torch.from_numpy(_occupancy_samples(SCORE_SAMPLES).astype(np.float32)).to(dev)
+
+    def compare(name, w, p):
+        far = (p - 0.5).abs() > W1_BAND
+        flips = int(((w > 0.5) != (p > 0.5))[far].sum())
+        err = float((w - p).abs().max())
+        check(f"W1 winding {name}", err, W1_ATOL,
+              note=f"; inside masks differ at {flips} queries outside |w - 0.5| <= {W1_BAND}")
+        check(f"W1 winding {name} (inside masks differing)", float(flips), 0.0)
+        return err
+
+    def against_f64(name, w, p, ref):
+        """W1 no further from the float64 winding number than twice its
+        plain version (f32 both) is, or 1e-5."""
+        ew, ep = float((w.double() - ref).abs().max()), float((p.double() - ref).abs().max())
+        check(f"W1 winding {name} against float64", ew, max(2 * ep, 1e-5),
+              note=f"; plain version against float64 {ep:.3e}")
+
+    w = winding(q, *tri)
+    torch.cuda.synchronize()
+    t_plain = cuda_ms(lambda: winding_plain(q, *tri), reps=1, warmup=0)
+    p = winding_plain(q, *tri)
+    err = compare(f"{q.shape[0]} cube samples x {f.shape[0]} faces of the 50NN mesh", w, p)
+    if not torch.equal(winding(q, *tri), w):
+        check("W1 winding (two runs differing)", 1.0, 0.0)
+    against_f64("first 2048 cube samples x the 50NN mesh", w[:2048], p[:2048],
+                winding_f64(q[:2048], *tri))
+    pairs = q.shape[0] * f.shape[0]
+    n_bytes = q.shape[0] * 12 + 3 * f.shape[0] * 12 + q.shape[0] * 4
+    b_ms, b_by = bound_ms(n_bytes, pairs * W1_OPS_PER_PAIR, "f32")
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_ms = pairs * W1_SQRT_PER_PAIR / (SFU_PER_CLOCK * sms * mhz * 1e6) * 1e3
+    results["winding"] = dict(
+        name="winding", route="cuda", source="ppsurf_tpu_torch/csrc/winding.cu",
+        replaces="ppsurf_tpu/metrics/winding.py:23",
+        max_abs_err=err, ms=cuda_ms(lambda: winding(q, *tri), reps=5),
+        plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"Q={q.shape[0]} F={f.shape[0]} f32",
+        note="no Pallas counterpart: the JAX package computes it as a jitted XLA reduction",
+    )
+    print(f"# W1 bound: {pairs * W1_OPS_PER_PAIR:.3e} operations at 67 TFLOP/s f32 "
+          f"{b_ms:.3f} ms; SFU floor of its {W1_SQRT_PER_PAIR} square roots a pair "
+          f"({SFU_PER_CLOCK} a clock on each of {sms} SMs at {mhz:.0f} MHz) {sfu_ms:.3f} ms "
+          "(worked out, not measured)", flush=True)
+    del w, p
+
+    # edge cases: faces of no tile's multiple, one face, degenerate faces
+    # (a repeated vertex, a point), queries on vertices, odd query counts
+    sub = [t[:8193] for t in tri]
+    a, b, c = tri
+    degenerate = [torch.cat([a[:5000], a[:300], a[300:400]]),
+                  torch.cat([b[:5000], a[:300], a[300:400]]),
+                  torch.cat([c[:5000], b[:300], a[300:400]])]
+    on_vertex = torch.cat([v[torch.randperm(v.shape[0], generator=gen, device=dev)[:500]],
+                           q[:501]])
+    for name, qq, tt in (("F=8193 faces, Q=1001", q[:1001], sub),
+                         ("a single face, Q=77", q[:77], [t[:1] for t in tri]),
+                         ("5000 faces + 400 degenerate, Q=1001", q[:1001], degenerate),
+                         ("1001 queries, 500 on vertices, 8193 faces", on_vertex, sub)):
+        compare(name, winding(qq, *tt), winding_plain(qq, *tt))
+    # a soup of large triangles across a sphere: queries near their planes
+    # cancel in f32 in both versions, so W1 is held to float64 there
+    pts = torch.randn(3 * 200000, 3, generator=gen, device=dev)
+    pts = pts / pts.norm(dim=1, keepdim=True) * 0.3
+    soup = [pts[i::3].contiguous() for i in range(3)]
+    qs = q[:2048]
+    w_s, p_s = winding(qs, *soup), winding_plain(qs, *soup)
+    print(f"# W1 winding 2048 cube samples x a soup of 200000 large triangles: max "
+          f"|W1 - plain| {float((w_s - p_s).abs().max()):.3e}", flush=True)
+    against_f64("2048 cube samples x a soup of 200000 large triangles", w_s, p_s,
+                winding_f64(qs, *soup))
+
+
+def scoring_phase(check, results, tmp: str, mesh, gt) -> None:
+    """Score the 50NN mesh against the analytic ground truth with the
+    metrics `predict` writes (launch counts reset before and read after);
+    then the ground truth meshed at res 129, which must reach IoU and F1
+    of 0.99; then the ground truth against itself: Chamfer 0, IoU 1, F1 1
+    exactly, normal error under 0.05 rad."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch.metrics.mesh_metrics import get_metric_mesh_single_file
+    from ppsurf_tpu_torch.ops import kernels
+
+    gt_file = os.path.join(tmp, "gt.ply")
+    gt.export(gt_file)
+    for label, scored in (("50NN mesh", mesh), ("ground truth at res 129", torus_gt_mesh(129)),
+                          ("ground truth", gt)):
+        file_in = os.path.join(tmp, "scored.ply")
+        scored.export(file_in)
+        kernels.reset_launches()
+        got, secs = {}, {}
+        for metric in ("chamfer", "iou", "f1", "normals"):
+            t0 = time.perf_counter()
+            got[metric] = get_metric_mesh_single_file(gt_file, file_in, SCORE_SAMPLES, metric,
+                                                      device="cuda")
+            torch.cuda.synchronize()
+            secs[metric] = time.perf_counter() - t0
+        launches = kernels.LAUNCHES["winding"]
+        print(f"# scoring the {label} ({scored.faces.shape[0]} faces) against the ground truth "
+              f"({gt.faces.shape[0]} faces), {SCORE_SAMPLES} samples: "
+              + ", ".join(f"{k} {v!r} in {secs[k]:.3f} s" for k, v in got.items())
+              + f"; {sum(secs.values()):.3f} s in all; W1 launches {launches}", flush=True)
+        if not all(np.isfinite(v) for v in got.values()) or launches != 4:
+            fail(f"scoring the {label}: {got}, W1 launches {launches} (4 expected)")
+        if label == "50NN mesh":
+            results["winding"]["launches"] = launches
+        elif label == "ground truth at res 129":
+            check("the ground truth at res 129 against res 257 (1 - min(IoU, F1))",
+                  1.0 - min(got["iou"], got["f1"]), 0.01)
+        else:
+            same = (got["chamfer"] == 0.0 and got["iou"] == 1.0 and got["f1"] == 1.0
+                    and got["normals"] < 0.05)
+            check("the ground truth against itself (Chamfer 0, IoU 1, F1 1 exactly, normal "
+                  "error < 0.05 rad; 1 where one fails)", float(not same), 0.0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resolution", type=int, default=257)
@@ -1520,13 +1728,21 @@ def main() -> int:
         fail(f"the 40-point cloud did not run K3 at k=40: {slaunch}")
     results["decoder_tail_k40"]["launches"] = slaunch["decoder_tail"]
 
-    # ---- 11. `cli predict` on a two-shape dataset written to a temp dir ----
+    # ---- 11. `cli predict` on a two-shape dataset written to a temp dir,
+    # scored against its ground truth ----
+    t0 = time.perf_counter()
+    gt = torus_gt_mesh(GT_RESOLUTION)
+    print(f"# ground truth: marching cubes of the torus and sphere at res {GT_RESOLUTION}: "
+          f"{gt.vertices.shape[0]} vertices {gt.faces.shape[0]} faces in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         names = ("shape_a", "shape_b")
         os.makedirs(os.path.join(tmp, "tiny", "04_pts_vis"))
+        os.makedirs(os.path.join(tmp, "tiny", "03_meshes"))
         for i, name in enumerate(names):
             save_ply(os.path.join(tmp, "tiny", "04_pts_vis", name + ".xyz.ply"),
                      torus_cloud(20000, seed=10 + i))
+            gt.export(os.path.join(tmp, "tiny", "03_meshes", name + ".ply"))
         testset = os.path.join(tmp, "tiny", "testset.txt")
         with open(testset, "w") as fp:
             fp.write("\n".join(names) + "\n")
@@ -1541,16 +1757,26 @@ def main() -> int:
                        "--model.init_args.gen_resolution_global", "129"])
         csecs = time.perf_counter() - t0
         clau = dict(kernels.LAUNCHES)
-        want = [os.path.join(results_dir, "ppsurf_50nn", "tiny", "meshes", f"{name}.xyz.ply")
-                for name in names]
+        rdir = os.path.join(results_dir, "ppsurf_50nn", "tiny")
+        want = [os.path.join(rdir, "meshes", f"{name}.xyz.ply") for name in names]
+        want += [os.path.join(rdir, f"{t}.{ext}") for t in SCORE_TABLES for ext in ("csv", "xlsx")]
         found = sorted(os.path.relpath(os.path.join(r, f), tmp)
                        for r, _, fs in os.walk(results_dir) for f in fs)
-        print(f"# cli predict, two shapes, res 129: rc {rc}, {csecs:.2f} s; wrote {found}; "
-              f"launches {json.dumps({k: v for k, v in clau.items() if v})}", flush=True)
-        if rc != 0 or found != [os.path.relpath(w, tmp) for w in want]:
+        print(f"# cli predict, two shapes, res 129, scored: rc {rc}, {csecs:.2f} s; wrote "
+              f"{found}; launches {json.dumps({k: v for k, v in clau.items() if v})}", flush=True)
+        if rc != 0 or found != sorted(os.path.relpath(w, tmp) for w in want):
             fail(f"cli predict wrote {found}, expected {want} (rc {rc})")
-        if any(clau[k] == 0 for k in PATH_KERNELS):
-            fail(f"cli predict did not run every path kernel: {clau}")
+        if any(clau[k] == 0 for k in PATH_KERNELS) or clau["winding"] != 4 * len(names):
+            fail(f"cli predict did not run every path kernel, and W1 4 times a shape: {clau}")
+        for table in SCORE_TABLES:
+            with open(os.path.join(rdir, table + ".csv")) as fp:
+                rows = [line.rstrip("\n").split(",") for line in fp]
+            values = [float(r[1]) if r[1] else float("nan") for r in rows[1:1 + len(names)]]
+            print(f"# cli predict {table}: " + ", ".join(
+                f"{r[0]} {v!r}" for r, v in zip(rows[1:], values)), flush=True)
+            if ([r[0] for r in rows[1:1 + len(names)]] != list(names)
+                    or not np.isfinite(values).all()):
+                fail(f"cli predict's {table} table is not one finite row a shape: {rows}")
 
     # ---- 12. training: fit, overfit, card vs CPU, step time, test, rec ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -1558,10 +1784,21 @@ def main() -> int:
         training_phase(tmp, smi, args.profile)
         print(f"# train: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 13. scoring: W1 against its plain version, the 50NN mesh scored ----
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        winding_checks(check, results, gen, dev, mesh)
+    with tempfile.TemporaryDirectory() as tmp:
+        scoring_phase(check, results, tmp, mesh, gt)
+    if failures:
+        fail(f"the scoring phase failed: {failures}")
+    print(f"# scoring: phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in
                                   PATH_KERNELS + NEW_BUILDS
-                                  + tuple(f"extract_{v}" for v in VARIANTS)]}))
+                                  + tuple(f"extract_{v}" for v in VARIANTS)
+                                  + ("winding",)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

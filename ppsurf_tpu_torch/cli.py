@@ -28,8 +28,11 @@ the merged config.
 - `--device cuda` (the default) or `--device cpu`; the network computes in
   bfloat16 on the card when the trainer's precision is 16-bit, and in
   float32 on the CPU, as the JAX package picks its dtype from its platform.
-- Scoring the meshes of `predict` (`evaluate_reconstructions`) waits for
-  the port of the mesh metrics.
+- After reconstructing a dataset, `predict` scores its meshes against the
+  dataset's `03_meshes` (`train.evaluate.evaluate_reconstructions`, as
+  `ppsurf_tpu/cli.py:350-351`): Chamfer, F1, IoU and normal-error tables
+  beside the meshes, the inside/outside tests on `--device`. A dataset
+  without `03_meshes` skips the scoring with a warning.
 """
 from __future__ import annotations
 
@@ -291,6 +294,7 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         return 0
 
     from ppsurf_tpu_torch.recon.predict import Predictor
+    from ppsurf_tpu_torch.train.evaluate import evaluate_reconstructions
 
     predictor = Predictor(spec, variables=variables, device=device)
     results = predictor.predict_dataset(datamodule.predict_dataset())
@@ -298,8 +302,8 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     for name, out_file, seconds in done:
         print(f"{name}: {seconds:.2f} s -> {out_file}")
     print(f"{len(done)} of {len(results)} shapes reconstructed ({spec.name}, {spec.kind}, "
-          f"{str(spec.dtype).replace('torch.', '')}, {device}, weights {ckpt}); scoring "
-          "them (evaluate_reconstructions) waits for the port of the mesh metrics")
+          f"{str(spec.dtype).replace('torch.', '')}, {device}, weights {ckpt})")
+    evaluate_reconstructions(spec, datamodule.paths.in_file, device=device)
     return 0 if len(done) == len(results) else 1
 
 

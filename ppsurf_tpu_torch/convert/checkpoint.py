@@ -6,13 +6,15 @@ a `torch.save` of a dict with the training step, the network's variables
 as the JAX package's nested `{'params', 'batch_stats'}` tree (flax names,
 CPU f32 tensors as leaves) and the optimizer's `state_dict`. The JAX
 package's orbax checkpoints are not read here; its inference `.npz`
-(`ppsurf_tpu.convert.infer_npz`) is.
+(`ppsurf_tpu.convert.infer_npz`) is, and `convert/torch_ckpt.py` writes
+the reference's Lightning checkpoints in this format.
 """
 from __future__ import annotations
 
 import os
 import typing
 
+import numpy as np
 import torch
 
 from ppsurf_tpu_torch.convert.infer_npz import load_infer_npz, to_jax_variables
@@ -28,11 +30,21 @@ def save_checkpoint(path: str, net: torch.nn.Module,
                     optimizer: typing.Optional[torch.optim.Optimizer], step: int) -> str:
     """Write `net`'s variables, the optimizer state and the step to `path`
     (written to a temporary file first, then renamed)."""
+    return save_variables(path, to_jax_variables(net), step,
+                          None if optimizer is None else optimizer.state_dict())
+
+
+def save_variables(path: str, variables: dict, step: int,
+                   optimizer_state: typing.Optional[dict] = None) -> str:
+    """Write nested {'params', 'batch_stats'} numpy variables, an optimizer
+    `state_dict` (or None) and the step to `path` in `save_checkpoint`'s
+    format."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = {
         "step": int(step),
-        "variables": _map_tree(to_jax_variables(net), torch.from_numpy),
-        "optimizer": None if optimizer is None else optimizer.state_dict(),
+        "variables": _map_tree(variables, lambda a: torch.from_numpy(
+            np.array(a, dtype=np.float32, copy=True))),
+        "optimizer": optimizer_state,
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)

@@ -7,8 +7,11 @@ standard library's `csv` module, laid out as pandas' `DataFrame.to_csv`
 writes the JAX package's (index column first, floats as their shortest
 repr, NaN as an empty cell), and, for an `.xlsx` name, also as `.xlsx`
 through the first-party writer. The AVERAGE/MEDIAN/STDEV rows skip NaN,
-as pandas' mean, median and std (ddof 1) do. The mesh-metric reports stay
-with the JAX package.
+as pandas' mean, median and std (ddof 1) do. `make_quantitative_comparison`
+(`ppsurf_tpu/eval/reports.py:139-171`, reference `evaluation.py:32-59`)
+writes the four mesh-metric tables of a set of methods. The reports of
+`make_comparison` (dataset comparison, assembly, LaTeX, HTML) stay with
+the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +20,10 @@ import os
 import typing
 
 import numpy as np
+
+from ppsurf_tpu_torch.device import resolve_device
+from ppsurf_tpu_torch.metrics.mesh_metrics import get_metric_meshes
+from ppsurf_tpu_torch.metrics.winding import Device
 
 STAT_ROWS = ("AVERAGE", "MEDIAN", "STDEV")
 
@@ -103,3 +110,44 @@ def make_test_report(
         float(np.nanmean(metrics[:, 0])),
         float(np.nanmean(metrics[:, -1])),
     )
+
+
+# metric -> table file; every table takes the default color scale (lower is
+# better), as the JAX package writes them
+_METRIC_FILES = {
+    "chamfer": "chamfer_distance.xlsx",
+    "f1": "f1.xlsx",
+    "iou": "iou.xlsx",
+    "normals": "normal_error.xlsx",
+}
+
+
+def make_quantitative_comparison(
+    shape_names: typing.Sequence[str],
+    gt_mesh_files: typing.Sequence[str],
+    result_headers: typing.Sequence[str],
+    result_file_templates: typing.Sequence[str],
+    comp_output_dir: str,
+    num_samples: int = 10000,
+    num_processes: int = 0,
+    device: Device = None,
+) -> typing.Dict[str, str]:
+    """Chamfer, F1, IoU and normal-error tables (a column per method, a row
+    per shape, `.csv` and `.xlsx`) in `comp_output_dir`; metric -> CSV path.
+    The inside/outside tests of IoU and F1 run on `device`."""
+    device = resolve_device(device)
+    written = {}
+    for metric, file_name in _METRIC_FILES.items():
+        values = get_metric_meshes(
+            result_file_template=result_file_templates,
+            shape_list=shape_names,
+            gt_mesh_files=gt_mesh_files,
+            num_samples=num_samples,
+            metric=metric,
+            device=device,
+        )
+        arr = np.asarray(values, np.float64).T  # (shapes, methods)
+        out = os.path.join(comp_output_dir, file_name)
+        written[metric] = export_table(result_headers, shape_names, arr, out,
+                                       index_name="Shape")
+    return written

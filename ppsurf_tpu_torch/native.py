@@ -69,7 +69,12 @@ def _load() -> typing.Optional[ctypes.CDLL]:
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
+    lib.kdtree_build.restype = ctypes.c_void_p
+    lib.kdtree_build.argtypes = [f32p, i64]
+    lib.kdtree_free.argtypes = [ctypes.c_void_p]
+    lib.kdtree_query.argtypes = [ctypes.c_void_p, f32p, i64, ctypes.c_int, f32p, i64p]
     lib.mc_extract.restype = i64
     lib.mc_extract.argtypes = [
         f64p, i64, i64, i64, ctypes.c_double,
@@ -140,6 +145,31 @@ class RegionGrowState:
         if n < 0:
             raise RuntimeError("rg_next_frontier overflow")
         return out[:n]
+
+
+class NativeKdTree:
+    """Exact k-nearest-neighbour queries on the host (the metrics' proximity
+    layer): `query` returns (distances, ids), each (Q, k), nearest first."""
+
+    def __init__(self, pts: np.ndarray):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._pts = np.ascontiguousarray(pts, np.float32)
+        self._handle = lib.kdtree_build(self._pts, self._pts.shape[0])
+
+    def query(self, queries: np.ndarray, k: int = 1):
+        q = np.ascontiguousarray(queries, np.float32)
+        d2 = np.empty((q.shape[0], k), np.float32)
+        ids = np.empty((q.shape[0], k), np.int64)
+        self._lib.kdtree_query(self._handle, q, q.shape[0], k, d2, ids)
+        return np.sqrt(d2), ids
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.kdtree_free(self._handle)
+            self._handle = None
 
 
 def available() -> bool:

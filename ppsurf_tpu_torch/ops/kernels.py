@@ -25,7 +25,7 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-SOURCES = ("knn.cu", "decoder_tail.cu", "pointnet.cu", "select.cu")
+SOURCES = ("knn.cu", "decoder_tail.cu", "pointnet.cu", "select.cu", "winding.cu")
 HEADERS = ("common.cuh", "gmma.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,11 +41,12 @@ EXTRACT_VARIANTS = ("noop", "elementwise", "sum_only", "min_only", "min_argmin",
 # candidate refinement runs at kc=192; K3 under "decoder_tail" at latent
 # 256 and "decoder_tail_l32" at latent 32 (POCO); K4 and K5 under
 # "pointnet_trunk"/"pointnet_head" for patches of one 64-row tile and
-# "..._wide" for P in (64, 256].
+# "..._wide" for P in (64, 256]; W1 (the metrics' winding number) under
+# "winding".
 LAUNCHES: typing.Dict[str, int] = {
     "knn": 0, "knn_k192": 0, "decoder_tail": 0, "decoder_tail_l32": 0,
     "pointnet_trunk": 0, "pointnet_head": 0, "pointnet_trunk_wide": 0,
-    "pointnet_head_wide": 0, "topk_rows": 0,
+    "pointnet_head_wide": 0, "topk_rows": 0, "winding": 0,
     **{f"extract_{v}": 0 for v in EXTRACT_VARIANTS},
 }
 
@@ -67,6 +68,8 @@ _SIGNATURES = {
     "ppsurf_topk_rows": [_P, _P, _I, _I, _I, _P],
     # cand, out, q, ncand, k, variant (index in EXTRACT_VARIANTS), stream
     "ppsurf_extract": [_P, _P, _I, _I, _I, _I, _P],
+    # queries, tri_a, tri_b, tri_c, partial sums, out, nq, nf, splits, stream
+    "ppsurf_winding": [_P] * 6 + [_I] * 3 + [_P],
 }
 # launch shapes (`launch_info`): (int arguments) -> 4 long longs
 _INFO = {

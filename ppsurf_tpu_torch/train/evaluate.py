@@ -1,10 +1,13 @@
-"""`test` subcommand: per-shape classification eval + report.
+"""`test` subcommand's classification eval and `predict`'s mesh scoring.
 
 Port of `run_test` (`ppsurf_tpu/train/evaluate.py:26-94`, reference
 `PocoModel.test_step` / `on_test_epoch_end`, `source/poco_model.py:134-181`):
 batch size 1 over the test set, each shape's loss and confusion metrics,
 written by `eval.reports.make_test_report` to `metrics_{name}.csv` and
 `.xlsx`. The shapes' graph draws come from a generator seeded with `seed`.
+`evaluate_reconstructions` (`ppsurf_tpu/train/evaluate.py:88-117`, reference
+`on_predict_epoch_end`, `source/poco_model.py:275-300`) scores the meshes
+`predict` wrote against the dataset's ground truth.
 """
 from __future__ import annotations
 
@@ -14,8 +17,11 @@ import typing
 import numpy as np
 import torch
 
-from ppsurf_tpu_torch.data.datasets import ShapeDataset, get_results_dir
-from ppsurf_tpu_torch.eval.reports import make_test_report
+from ppsurf_tpu_torch.data.datasets import (
+    ShapeDataset, get_meshes_dir, get_results_dir, in_file_is_dataset, read_shape_list,
+)
+from ppsurf_tpu_torch.device import resolve_device
+from ppsurf_tpu_torch.eval.reports import make_quantitative_comparison, make_test_report
 from ppsurf_tpu_torch.metrics.classification import compare_predictions_binary_arrays
 from ppsurf_tpu_torch.train.loop import eval_step, to_device
 from ppsurf_tpu_torch.train.model import ModelSpec
@@ -63,3 +69,37 @@ def run_test(
     )
     print(f"Test results (mean): Loss={loss_mean}, RMSE={rmse_mean}, F1={f1_mean}")
     return loss_mean, rmse_mean, f1_mean
+
+
+def evaluate_reconstructions(
+    spec: ModelSpec,
+    in_file: str,
+    results_dir: typing.Optional[str] = None,
+    num_samples: int = 100000,
+    device: typing.Union[str, torch.device, None] = None,
+) -> typing.Optional[typing.Dict[str, str]]:
+    """Chamfer, F1, IoU and normal-error tables of the meshes `predict` wrote
+    for a dataset (`<results>/meshes/{shape}.xyz.ply`) against its
+    `03_meshes/{shape}.ply`; metric -> CSV path. None for a single cloud or
+    a dataset without ground truth. IoU and F1 test inside/outside on
+    `device` (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    if not in_file_is_dataset(in_file):
+        return None
+    rdir = results_dir or get_results_dir(spec.results_dir, spec.name, in_file)
+    shape_names = read_shape_list(in_file)
+    gt_dir = get_meshes_dir(in_file)
+    if not os.path.exists(gt_dir):
+        print(f"Warning: {gt_dir} not found. Skipping evaluation.")
+        return None
+    gt_meshes = [os.path.join(gt_dir, f"{n}.ply") for n in shape_names]
+    os.makedirs(rdir, exist_ok=True)
+    return make_quantitative_comparison(
+        shape_names=shape_names,
+        gt_mesh_files=gt_meshes,
+        result_headers=[spec.name],
+        result_file_templates=[os.path.join(rdir, "meshes/{}.xyz.ply")],
+        comp_output_dir=rdir,
+        num_samples=num_samples,
+        device=device,
+    )

@@ -2,15 +2,19 @@
 
 - no file of the port imports jax, flax or the JAX package, statically or
   at run time (package, chip_smoke.py and chip_rounding_control.py);
-- entry points (the predictor, the trainer) default to CUDA and raise
-  where there is none;
+- entry points (the predictor, the trainer, the scoring: `points_inside`,
+  `evaluate_reconstructions`, `make_evaluation`) default to CUDA and
+  raise where there is none;
 - the committed weights map onto the port's network key for key;
 - on a card, each kernel wrapper launches its kernel and agrees with its
   plain version, K1 exactly also on duplicates, clusters with far queries,
   shuffled clouds and masks with fewer valid points than k, K2 also on
   all-tie rows at kc in {33, 192, 256} and T1 `full` at 1536 candidates,
   the bf16 tensor-core K3-K5 within the smoke's bf16 limits, K3 also at
-  L=32 (POCO) and at k < 64 and K4/K5 at P in (64, 256] in both dtypes
+  L=32 (POCO) and at k < 64 and K4/K5 at P in (64, 256] in both dtypes,
+  and W1 (the metrics' winding number) within 1e-4 of its plain version,
+  its inside masks equal outside |w - 0.5| <= 1e-3, on a closed mesh with
+  queries on vertices and degenerate faces, a single face and 8 193 faces
   (marked `cuda`: skips on a machine without one).
 """
 from __future__ import annotations
@@ -51,7 +55,9 @@ def _imported_roots(path):
 MODULES = ("cli.py", "rec.py", "data/datasets.py", "models/poco.py", "convert/init.py",
            "convert/checkpoint.py", "ops/encoding.py", "recon/predict.py", "train/loop.py",
            "train/evaluate.py", "metrics/classification.py", "eval/reports.py",
-           "eval/xlsx.py")
+           "eval/xlsx.py", "metrics/sampling.py", "metrics/proximity.py",
+           "metrics/winding.py", "metrics/mesh_metrics.py", "ops/winding.py", "utils/fs.py",
+           "eval/make_evaluation.py", "convert/torch_ckpt.py")
 
 
 def test_no_file_of_the_port_imports_jax():
@@ -108,6 +114,29 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
                    device="cpu").device.type == "cpu"
 
 
+def test_scoring_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    from ppsurf_tpu_torch.eval import make_evaluation
+    from ppsurf_tpu_torch.eval.reports import make_quantitative_comparison
+    from ppsurf_tpu_torch.io.ply import Mesh
+    from ppsurf_tpu_torch.metrics.winding import points_inside
+    from ppsurf_tpu_torch.train.evaluate import evaluate_reconstructions
+    from ppsurf_tpu_torch.train.model import ppsurf_spec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tri = Mesh(np.eye(3, dtype=np.float32), np.array([[0, 1, 2]]))
+    empty = Mesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
+    for call in (lambda: points_inside(tri, np.zeros((2, 3))),
+                 lambda: points_inside(empty, np.zeros((2, 3))),
+                 lambda: evaluate_reconstructions(ppsurf_spec(), str(tmp_path / "testset.txt")),
+                 lambda: make_evaluation.evaluate_method_on_dataset("m", "d"),
+                 lambda: make_evaluation.main(["--model_names", "m", "--dataset_names", "d"]),
+                 lambda: make_quantitative_comparison(["s"], ["gt.ply"], ["m"], ["{}.ply"],
+                                                      str(tmp_path))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not points_inside(empty, np.zeros((2, 3)), device="cpu").any()
+
+
 def test_committed_weights_fill_the_network_key_for_key():
     from ppsurf_tpu_torch.convert.infer_npz import from_jax_variables, load_infer_npz
     from ppsurf_tpu_torch.train.model import ppsurf_spec
@@ -135,6 +164,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     from ppsurf_tpu_torch.ops import kernels
     from ppsurf_tpu_torch.ops.knn import knn
     from ppsurf_tpu_torch.ops.topk_rows import topk_rows
+    from ppsurf_tpu_torch.ops.winding import winding
     from ppsurf_tpu_torch.tools.microbench_extract import VARIANTS, extract
 
     def no_build():
@@ -149,6 +179,8 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     assert (topk_rows(torch.rand(10, 192), 64) < 192).all()
     for variant in VARIANTS:
         assert extract(torch.rand(10, 64), variant, 8).shape == (10, 8)
+    tri = torch.rand(3, 5, 3)
+    assert winding(torch.rand(7, 3), *tri).shape == (7,)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 
 
@@ -167,6 +199,7 @@ def test_kernels_match_plain_versions_on_the_card():
         pointnet_trunk_plain, stn_apply,
     )
     from ppsurf_tpu_torch.ops.topk_rows import topk_rows, topk_rows_plain
+    from ppsurf_tpu_torch.ops.winding import winding, winding_plain
     from ppsurf_tpu_torch.tools.microbench_extract import VARIANTS, extract, extract_plain
     from ppsurf_tpu_torch.train.model import ppsurf_spec
 
@@ -198,6 +231,11 @@ def test_kernels_match_plain_versions_on_the_card():
     x2 = torch.randn(700, 50, 64, generator=g, device=dev)
     torch.testing.assert_close(pointnet_head(x2, pt), pointnet_head_plain(x2, pt),
                                rtol=1e-4, atol=1e-4)
+    # W1 on 2000 small triangles (its closed-mesh cases: the test below)
+    a = pts[:2000]
+    tri = (a, a + 0.01 * torch.rand(a.shape, generator=g, device=dev),
+           a + 0.01 * torch.rand(a.shape, generator=g, device=dev))
+    torch.testing.assert_close(winding(q, *tri), winding_plain(q, *tri), rtol=0, atol=1e-4)
     wider = ("decoder_tail_l32", "pointnet_trunk_wide", "pointnet_head_wide")
     assert all(v == (k not in wider) for k, v in kernels.LAUNCHES.items()), kernels.LAUNCHES
 
@@ -287,3 +325,39 @@ def test_kernels_match_plain_versions_on_the_card():
             x2 = stn_apply(pool_p, b_p, pt_dt)
             assert agree(pointnet_head(x2, pt_dt), pointnet_head_plain(x2, pt_dt)), (p, dt)
     assert all(kernels.LAUNCHES[k] for k in wider), kernels.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_winding_kernel_matches_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from ppsurf_tpu_torch.ops import kernels
+    from ppsurf_tpu_torch.ops.winding import winding, winding_plain
+    from ppsurf_tpu_torch.recon.marching_cubes import marching_cubes
+
+    n = 65
+    g = np.mgrid[0:n, 0:n, 0:n].astype(np.float64)
+    vol = np.sqrt(((g - (n - 1) / 2) ** 2).sum(axis=0)) / ((n - 1) / 2) - 0.6
+    verts, faces = marching_cubes(vol, 0.0)
+    verts = (verts / (n - 1) - 0.5).astype(np.float32)
+    rng = np.random.default_rng(2)
+    # cube queries and queries on vertices; 40 faces with a repeated vertex
+    # and 20 that are a point
+    q = np.concatenate([(rng.random((1500, 3)) - 0.5).astype(np.float32),
+                        verts[rng.choice(verts.shape[0], 64, replace=False)]])
+    faces = np.concatenate([faces, faces[:40][:, [0, 0, 1]], faces[40:60][:, [0, 0, 0]]])
+    dev = torch.device("cuda")
+    v = torch.from_numpy(verts).to(dev)
+    f = torch.from_numpy(faces.astype(np.int64)).to(dev)
+    tri = [v[f[:, i]].contiguous() for i in range(3)]
+    qq = torch.from_numpy(q).to(dev)
+    for args in ((qq, *tri), (qq[:77], *(t[:1] for t in tri)),
+                 (qq[:1001], *(t[:8193] for t in tri))):
+        before = kernels.LAUNCHES["winding"]
+        w = winding(*args)
+        assert kernels.LAUNCHES["winding"] == before + 1
+        p = winding_plain(*args)
+        assert torch.isfinite(w).all() and float((w - p).abs().max()) <= 1e-4
+        far = (p - 0.5).abs() > 1e-3
+        assert torch.equal((w > 0.5)[far], (p > 0.5)[far])
+        assert torch.equal(winding(*args), w)  # deterministic

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Control for the bf16 limits that `chip_smoke.py` holds K3, K4 and K5 to.
+"""Control for the limits that `chip_smoke.py` holds K3, K4, K5 (bf16) and
+W1 (the metrics' winding number) to.
 
     python3 chip_rounding_control.py
 
 Runs `chip_smoke.py` (with a short reconstruction) on this checkout and on
-copies of it in which one rounding step of the kernels is removed, and
-prints each run's kernel check lines and exit code. The limits are sound
-where the unchanged run passes and each copy fails the checks of the
-kernels it changes. Needs one CUDA card; the copies live in a temporary
-directory that is removed at the end.
+copies of it in which one step of a kernel is removed: a rounding step of
+the bf16 K3-K5 epilogues, or a term or guard of W1's arithmetic. It prints
+each run's kernel check lines and exit code. The limits are sound where the
+unchanged run passes and each copy fails the checks of the kernel it
+changes. Needs one CUDA card; the copies live in a temporary directory that
+is removed at the end.
 """
 from __future__ import annotations
 
@@ -59,6 +61,18 @@ MUTANTS = {
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
         "att[tid] = tid < kn ? rnd<T>(a / HEADS) : 0.f;",
         "att[tid] = tid < kn ? a / HEADS : 0.f;"),
+    "W1 arctangent: the polynomial's highest term dropped": (
+        "ppsurf_tpu_torch/csrc/winding.cu",
+        "      -0.004822535f,\n",
+        ""),
+    "W1 vertex guard removed (0 / 0 for a query on a vertex)": (
+        "ppsurf_tpu_torch/csrc/winding.cu",
+        "const float hi = fmaxf(fmaxf(an, ad), W_FLT_MIN);",
+        "const float hi = fmaxf(an, ad);"),
+    "W1 numerator of a query on a vertex not zeroed (a . N rounds on B and C)": (
+        "ppsurf_tpu_torch/csrc/winding.cu",
+        "sum[j] = add_atan2(sum[j], vertex ? 0.f : n[j], d[j]);",
+        "sum[j] = add_atan2(sum[j], n[j], d[j]);"),
 }
 # what chip_smoke.py needs of the checkout
 NEEDED = ("chip_smoke.py", "ppsurf_tpu_torch", "native", "models_pretrained", "configs")
@@ -69,7 +83,7 @@ def run_smoke(root: str) -> int:
     proc = subprocess.run([sys.executable, "chip_smoke.py", *SMOKE_ARGS], cwd=root,
                           capture_output=True, text=True)
     for line in proc.stdout.splitlines():
-        if line.startswith(("# K3", "# K4", "# K5")):
+        if line.startswith(("# K3", "# K4", "# K5", "# W1")):
             print(f"  {line}")
     if proc.returncode != 0 and proc.stderr.strip():
         print(f"  {proc.stderr.strip().splitlines()[-1]}")

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (ppsurf_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--resolution N] [--passes N] [--refine N]
-                          [--profile FILE]
+                          [--profile FILE] [--w1-baseline FILE]
 
 (with --profile, the training phase's kernel table goes to FILE.train)
 
@@ -101,8 +101,11 @@ In order, it:
     query counts under the same limits; W1 no further than twice its plain
     version (or 1e-5) from a float64 winding number on 2048 of the
     samples, and on a soup of large triangles where f32 cancels; W1's time (CUDA events, median of
-    5) and the plain version's (one call), its bound and the SFU floor of
-    its square roots; then scores the 50NN mesh against the ground truth
+    5) and the plain version's (one call), its bound, the SFU floor of its
+    MUFU operations (3 square roots and a reciprocal a pair) and the SASS
+    instructions its pair loop issues a pair (with --w1-baseline FILE,
+    also those of W1's first design built from FILE, and the two timed
+    in turns at the production shape); then scores the 50NN mesh against the ground truth
     (Chamfer, IoU, F1, normal error, seconds each; W1 must launch 4 times),
     the ground truth meshed at res 129 (IoU and F1 at least 0.99) and the
     ground truth against itself (Chamfer 0, IoU 1, F1 1 exactly, normal
@@ -887,7 +890,133 @@ GT_RESOLUTION = 257
 SCORE_TABLES = ("chamfer_distance", "f1", "iou", "normal_error")
 W1_ATOL, W1_BAND = 1e-4, 1e-3
 W1_OPS_PER_PAIR = 64
-W1_SQRT_PER_PAIR = 3
+# the design's SFU operations a pair: three square roots, one reciprocal
+W1_MUFU_PER_PAIR = 4
+
+
+def w1_pair_sass(sass: str) -> typing.Optional[dict]:
+    """SASS instructions W1's pair loop issues a (query, face) pair on its
+    common path, by class, from `cuobjdump -sass` output holding
+    `winding_kernel`. The loop is the conditional backward branch with the
+    most MUFU instructions in its span and no mbarrier, bulk copy or block
+    barrier; the path runs from its head to that branch, taking a
+    conditional branch where the warp vote (VOTE.ALL) says every pair is
+    inner, or where the way past it calls a slow-path subroutine, and
+    falling through otherwise. Pairs an iteration = its square roots / 3."""
+    import re
+
+    for part in sass.split("Function : ")[1:]:
+        head, body = part.split("\n", 1)
+        if re.search(r"\d+winding_kernel", head):
+            break
+    else:
+        return None
+    code = [(int(m.group(1), 16), m.group(2)) for m in
+            (re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line) for line in body.splitlines())
+            if m]
+    at = {a: i for i, (a, _) in enumerate(code)}
+
+    def target(ins):
+        m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", ins)
+        return int(m.group(1), 16) if m else None
+
+    def opcode(ins):
+        return re.sub(r"^@!?U?P\w+\s+", "", ins)
+
+    loops = []
+    for i, (a, ins) in enumerate(code):
+        t = target(ins)
+        if t is not None and t < a and ins.startswith("@") and t in at:
+            span = [x for _, x in code[at[t]:i + 1]]
+            if not any(re.search(r"\b(SYNCS|UBLKCP|BAR)\b", x) for x in span):
+                loops.append((sum(opcode(x).startswith("MUFU") for x in span), t, a))
+    if not loops:
+        return None
+    _, start, latch = max(loops)
+    i, seen, ops, votes = at[start], set(), [], set()
+    while True:
+        a, ins = code[i]
+        if a in seen:
+            return None
+        seen.add(a)
+        ops.append(opcode(ins).split()[0])
+        if a == latch:
+            break
+        if ops[-1].startswith("VOTE.ALL"):
+            votes.add(opcode(ins).split()[1].rstrip(","))
+        t = target(ins)
+        if t is not None:
+            m = re.match(r"@(!?)(U?P\d)", ins)
+            if m is None:
+                take = True
+            elif m.group(2) in votes:
+                take = m.group(1) == ""
+            else:
+                j = i + 1
+                while j < len(code) and code[j][0] != t and target(code[j][1]) is None:
+                    j += 1
+                take = any("CALL" in x for _, x in code[i + 1:j + 1])
+            if take:
+                i = at[t]
+                continue
+        i += 1
+    pairs = sum(o.startswith(("MUFU.SQRT", "MUFU.RSQ")) for o in ops) / 3
+    if not pairs:
+        return None
+    cls = {"FP32": sum(o.startswith("F") for o in ops),
+           "MUFU": sum(o.startswith("MUFU") for o in ops),
+           "LDS": sum(o.startswith("LDS") for o in ops)}
+    cls["other"] = len(ops) - sum(cls.values())
+    return dict(per_pair=len(ops) / pairs, pairs_an_iteration=pairs,
+                **{k: v / pairs for k, v in cls.items()})
+
+
+def sass_line(tag: str, r: typing.Optional[dict]) -> str:
+    if r is None:
+        return f"# W1 SASS ({tag}): pair loop not found"
+    return (f"# W1 SASS ({tag}), the pair loop's common path: {r['per_pair']:.2f} instructions "
+            f"a pair (FP32 {r['FP32']:.2f}, MUFU {r['MUFU']:.2f}, LDS {r['LDS']:.2f}, other "
+            f"{r['other']:.2f}; {r['pairs_an_iteration']:g} pairs an iteration)")
+
+
+def w1_baseline(path: str):
+    """W1's first design (one query a thread, 256-face tiles), from its
+    `winding.cu` at `path` (its C entry: queries, tri_a, tri_b, tri_c,
+    partial, out, nq, nf, splits, stream): nvcc with the port's flags into
+    a temporary directory. Returns the winding function on that design's
+    launch rule and the build's SASS."""
+    import ctypes
+    import shutil
+
+    import torch
+
+    from ppsurf_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp(prefix="w1_baseline_")
+    obj, so = os.path.join(tmp, "winding.o"), os.path.join(tmp, "libw1_baseline.so")
+    run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC, "-c", path, "-o", obj])
+    run([kernels._nvcc(), "-shared", "-o", so, obj])
+    sass = run([os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump"), "-sass", so])
+    lib = ctypes.CDLL(so)
+    shutil.rmtree(tmp)
+    fn = lib.ppsurf_winding
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def winding_baseline(q, a, b, c):
+        nq, nf = q.shape[0], a.shape[0]
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        tiles = max(1, -(-nf // 256))
+        splits = max(1, min(tiles, -(-sms * 8 * 16 // -(-nq // 128))))
+        partial = torch.empty((splits, nq), dtype=torch.float32, device=q.device)
+        out = torch.empty(nq, dtype=torch.float32, device=q.device)
+        rc = fn(*(t.data_ptr() for t in (q, a, b, c, partial, out)), nq, nf, splits,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"the baseline W1 launch failed (cudaError {rc})")
+        return out
+
+    return winding_baseline, sass
 
 
 def winding_f64(q, a, b, c):
@@ -913,13 +1042,18 @@ def winding_f64(q, a, b, c):
     return torch.cat(out)
 
 
-def winding_checks(check, results, gen, dev, mesh) -> None:
+def winding_checks(check, results, gen, dev, mesh, sass: str,
+                   baseline: typing.Optional[str] = None) -> None:
     """W1 against its plain version on the card: the production shape (the
     metrics' 100 000 seed-42 cube samples against the 50NN mesh), then
     faces no tile divides, a single face, degenerate faces, queries on
     vertices and query counts no block divides. |w - plain| <= W1_ATOL, and
     the inside masks equal wherever |plain - 0.5| > W1_BAND. On 2048 of the
-    samples, and on a soup of large triangles, W1 against float64."""
+    samples, and on a soup of large triangles, W1 against float64. Prints
+    the SASS instructions of the pair loop a pair (`w1_pair_sass`); with
+    `baseline` (the first design's winding.cu), that build's too, and the
+    two timed in turns at the production shape (baseline, this tree, this tree,
+    baseline)."""
     import numpy as np
     import torch
 
@@ -962,7 +1096,7 @@ def winding_checks(check, results, gen, dev, mesh) -> None:
     mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                      "--format=csv,noheader,nounits"]).splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sfu_ms = pairs * W1_SQRT_PER_PAIR / (SFU_PER_CLOCK * sms * mhz * 1e6) * 1e3
+    sfu_ms = pairs * W1_MUFU_PER_PAIR / (SFU_PER_CLOCK * sms * mhz * 1e6) * 1e3
     results["winding"] = dict(
         name="winding", route="cuda", source="ppsurf_tpu_torch/csrc/winding.cu",
         replaces="ppsurf_tpu/metrics/winding.py:23",
@@ -972,9 +1106,22 @@ def winding_checks(check, results, gen, dev, mesh) -> None:
         note="no Pallas counterpart: the JAX package computes it as a jitted XLA reduction",
     )
     print(f"# W1 bound: {pairs * W1_OPS_PER_PAIR:.3e} operations at 67 TFLOP/s f32 "
-          f"{b_ms:.3f} ms; SFU floor of its {W1_SQRT_PER_PAIR} square roots a pair "
-          f"({SFU_PER_CLOCK} a clock on each of {sms} SMs at {mhz:.0f} MHz) {sfu_ms:.3f} ms "
-          "(worked out, not measured)", flush=True)
+          f"{b_ms:.3f} ms; SFU floor of its {W1_MUFU_PER_PAIR} MUFU operations a pair (3 "
+          f"square roots, 1 reciprocal; {SFU_PER_CLOCK} a clock on each of {sms} SMs at "
+          f"{mhz:.0f} MHz) {sfu_ms:.3f} ms (worked out, not measured)", flush=True)
+    print(sass_line("this tree", w1_pair_sass(sass)), flush=True)
+    if baseline:
+        winding_base, base_sass = w1_baseline(baseline)
+        print(sass_line(f"baseline {baseline}", w1_pair_sass(base_sass)), flush=True)
+        wb = winding_base(q, *tri)
+        print(f"# W1 baseline against the plain version: max |dw| "
+              f"{float((wb - p).abs().max()):.3e}", flush=True)
+        turns = [("baseline", lambda: winding_base(q, *tri)), ("this tree", lambda: winding(q, *tri)),
+                 ("this tree", lambda: winding(q, *tri)), ("baseline", lambda: winding_base(q, *tri))]
+        times = [(tag, cuda_ms(fn, reps=5)) for tag, fn in turns]
+        print("# W1 A/B at the production shape, in turns (CUDA-event medians of 5): "
+              + ", ".join(f"{tag} {t:.3f} ms" for tag, t in times), flush=True)
+        del wb
     del w, p
 
     # edge cases: faces of no tile's multiple, one face, degenerate faces
@@ -1054,6 +1201,9 @@ def main() -> int:
     ap.add_argument("--resolution", type=int, default=257)
     ap.add_argument("--passes", type=int, default=10)
     ap.add_argument("--refine", type=int, default=10)
+    ap.add_argument("--w1-baseline", default=None,
+                    help="the first W1 design's csrc/winding.cu: phase 13 also builds it "
+                         "and times the two in turns")
     ap.add_argument("--profile", default=None,
                     help="trace the reconstruction; write kernel time by name here")
     args = ap.parse_args()
@@ -1787,7 +1937,7 @@ def main() -> int:
     # ---- 13. scoring: W1 against its plain version, the 50NN mesh scored ----
     t0 = time.perf_counter()
     with torch.inference_mode():
-        winding_checks(check, results, gen, dev, mesh)
+        winding_checks(check, results, gen, dev, mesh, sass, args.w1_baseline)
     with tempfile.TemporaryDirectory() as tmp:
         scoring_phase(check, results, tmp, mesh, gt)
     if failures:

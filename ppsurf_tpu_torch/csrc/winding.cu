@@ -1,77 +1,245 @@
 // W1: generalized winding numbers of Q queries against F triangles.
 //
-// For query q and triangle (A, B, C), with a = A - q, b = B - q, c = C - q,
-// the triangle's solid angle is (Van Oosterom-Strackee)
-//   omega = 2 atan2(a . (b x c), |a||b||c| + (a.b)|c| + (b.c)|a| + (c.a)|b|)
-// and the winding number is sum(omega) / (4 pi): about 1 inside a closed
+// For query q and triangle (A, B, C), with a = A - q, b = B - q, c = C - q
+// and the face normal N = (B - A) x (C - A), the triangle's solid angle is
+// (Van Oosterom-Strackee)
+//   omega = 2 atan2(a . N, |a||b||c| + (a.b)|c| + (b.c)|a| + (c.a)|b|)
+// (a . N = a . (b x c) exactly in real arithmetic: the signed volume about
+// q), and the winding number is sum(omega) / (4 pi): about 1 inside a closed
 // surface and 0 outside. The JAX package computes it as a jitted XLA
 // reduction (`ppsurf_tpu/metrics/winding.py:23-80`); this is its CUDA form.
 //
-// One thread per query. A block of W_THREADS queries walks a contiguous
-// range of the faces (grid.y splits the face axis, so that small query
-// counts still fill the card), staging W_TILE faces at a time in shared
-// memory, where every lane of a warp reads the same face (a broadcast).
-// A thread sums the solid angles of a staged tile in f32, then adds that
-// tile sum to its running f32 total; the split's total goes to
-// partial[split][query]. A second kernel adds the splits in split order
-// and divides by 4 pi. No atomics: the result depends only on the inputs
-// and the split count. Full-precision sqrtf and atan2f (no fast math):
-// a degenerate triangle or a query on a vertex gives atan2(+-0, +0) = 0.
+// What bounds it on an H100: issued instructions. The bytes are a few MB;
+// each (query, face) pair is a chain of f32 operations, three square roots
+// and an arctangent, 6.5e10 pairs at the metrics' shape. The design cuts
+// what a pair issues:
+// - the faces come packed by the wrapper (`ops/winding.py::pack_faces`),
+//   three float4 a face, (A, Nx) (B, Ny) (C, Nz), zero-padded to whole
+//   tiles: the numerator is three FMAs with no cross product, and a
+//   padding face adds exactly 0 (N = 0 gives a numerator of +-0 over a
+//   positive denominator, or a query on a vertex, below). a . N rounds by
+//   about eps |a||N| where a . (b x c) rounds by eps |a||b||c|: the same
+//   but for a query far closer to B or C than to A. Exactly on a vertex
+//   the plain version's numerator is exactly 0 (a zero vector) and the
+//   denominator +0; the general path finds that case and takes 0 too;
+// - a block of W_THREADS threads, W_QUERIES queries each, walks a
+//   contiguous range of face tiles (grid.y splits the face axis), staged
+//   W_TILE faces at a time into a W_STAGES-deep shared-memory ring by 1-D
+//   bulk copies on mbarriers, so neither the copy's address arithmetic nor
+//   its latency sits in the pair loop; every lane of a warp reads the same
+//   face (broadcast), and each face read serves W_QUERIES pairs;
+// - the lengths are `sqrt.approx` (one MUFU.SQRT each: sqrt(0) = 0, so a
+//   query on a vertex needs no guard there), the arctangent an approximate
+//   reciprocal and a minimax polynomial (`atan_poly`, relative error bounded
+//   down to 0, not absolute: W1 sums up to a million terms);
+// - the pair's differences a, b, c stay in the loop: expanding |a|^2, the
+//   dot products or a . N into products of query and face terms would
+//   cancel near the surface, where the inside test matters most.
+// The arctangent has two paths. A face for which every pair of the warp has
+// |num| < den (a solid angle under pi/2: all but faces next to a query)
+// takes atan(num / den) = r P(r^2) directly, fused into the tile sum; any
+// other face takes the full quadrant logic (`add_atan2`) for the whole
+// warp. The branch is warp-uniform, and where both apply they give the same
+// bits, so a query's result does not depend on the queries beside it.
+//
+// A thread sums a tile's arctangents in f32, then adds that tile sum to its
+// running total; the split's total goes to partial[split][query]. A second
+// kernel adds the splits in split order and divides by 2 pi (the sum holds
+// omega / 2). No atomics: the result depends only on the inputs and the
+// split count.
 #include "common.cuh"
+#include "gmma.cuh"
 
 namespace {
 
-constexpr int W_THREADS = 128;
-constexpr int W_TILE = 256;  // faces in shared memory at a time
+namespace gm = ppsurf::gmma;
 
-// A face packed as 3 float4: (ax ay az bx) (by bz cx cy) (cz 0 0 0)
+constexpr int W_THREADS = 128;
+constexpr int W_QUERIES = 4;   // queries a thread
+constexpr int W_TILE = 128;    // faces a ring stage
+constexpr int W_STAGES = 4;
+constexpr uint32_t W_TILE_BYTES = W_TILE * 3 * sizeof(float4);
+constexpr float W_FLT_MIN = 1.17549435e-38f;
+constexpr float W_HALF_PI = 1.57079637f;
+constexpr float W_PI = 3.14159274f;
+
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// within 1 ulp; x below FLT_MIN counts as 0 (.ftz)
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// atan(r) / r for |r| <= 1 as a polynomial in s = r^2: minimax in the
+// relative error with the leading coefficient fixed at 1. Evaluated in f32
+// with FMAs, r P(r^2) is within 3.0e-7 of atan(r) relative (4.5e-7 with the
+// reciprocal 1 ulp off, as far as `rcp.approx` may be); `add_atan2` holds
+// that bound in every quadrant. Mirrored in `ops/winding.py::ATAN_COEFFS`, which the
+// CPU tests hold to this text and to the bound.
+__device__ __forceinline__ float atan_poly(float s) {
+  // BEGIN W1 ATAN COEFFS
+  constexpr float c[] = {
+      1.0f, -0.33332393f, 0.19974214f, -0.14041328f, 0.09968473f, -0.06020313f,
+      0.024734065f,
+      -0.004822535f,
+  };
+  // END W1 ATAN COEFFS
+  constexpr int n = sizeof(c) / sizeof(c[0]);
+  float p = c[n - 1];
+#pragma unroll
+  for (int i = n - 2; i >= 0; --i) p = fmaf(p, s, c[i]);
+  return p;
+}
+
+// sum + atan2(n, d) for finite n, d with |n|, |d| < 2^126. The smaller of
+// |n|, |d| over the larger is r in [0, 1]; the quadrant turns t = r P(r^2)
+// into t, pi / 2 -+ t or pi - t, and n gives the sign: the result is
+// fma(s r', P, sum + s base) with s the sign of n, so that where |n| < d
+// (base 0) it is the fast path's fma(n / d, P, sum) to the bit. At
+// sum = -0 it is atan2(n, d) within the bound above, with IEEE's signed
+// zeros: atan2(+-0, +0) = +-0, atan2(+-0, -0 or -x) = +-pi,
+// atan2(n, +-0) = +-pi / 2.
+__device__ __forceinline__ float add_atan2(float sum, float n, float d) {
+  const float an = fabsf(n), ad = fabsf(d);
+  const bool swap = an > ad;
+  // the vertex guard: a query on a vertex gives n = d = 0, and 0 / 0
+  // would be NaN; hi >= FLT_MIN makes r = 0 there
+  const float hi = fmaxf(fmaxf(an, ad), W_FLT_MIN);
+  const float r = fminf(an, ad) * rcp_approx(hi);
+  const float p = atan_poly(r * r);
+  const bool neg = signbit(d);
+  const float sr = swap != neg ? -r : r;
+  const float base = swap ? W_HALF_PI : (neg ? W_PI : 0.f);
+  const uint32_t sign = __float_as_uint(n) & 0x80000000u;
+  return fmaf(__uint_as_float(__float_as_uint(sr) ^ sign), p,
+              sum + __uint_as_float(__float_as_uint(base) ^ sign));
+}
+
+// numerator a . N and denominator of one (query, face) pair
+__device__ __forceinline__ void pair_terms(float qx, float qy, float qz, float4 pa, float4 pb,
+                                           float4 pc, float& n, float& d) {
+  const float ax = pa.x - qx, ay = pa.y - qy, az = pa.z - qz;
+  const float bx = pb.x - qx, by = pb.y - qy, bz = pb.z - qz;
+  const float cx = pc.x - qx, cy = pc.y - qy, cz = pc.z - qz;
+  const float la = sqrt_approx(fmaf(az, az, fmaf(ay, ay, ax * ax)));
+  const float lb = sqrt_approx(fmaf(bz, bz, fmaf(by, by, bx * bx)));
+  const float lc = sqrt_approx(fmaf(cz, cz, fmaf(cy, cy, cx * cx)));
+  n = fmaf(az, pc.w, fmaf(ay, pb.w, ax * pa.w));
+  const float ab = fmaf(az, bz, fmaf(ay, by, ax * bx));
+  const float bc = fmaf(bz, cz, fmaf(by, cy, bx * cx));
+  const float ca = fmaf(cz, az, fmaf(cy, ay, cx * ax));
+  // (|a||b| + a.b)|c| + (b.c)|a| + (c.a)|b|, from +0: a query on a vertex
+  // gives +0 (as the plain version's sum does), never -0
+  d = fmaf(ca, lb, fmaf(bc, la, fmaf(lc, fmaf(la, lb, ab), 0.f)));
+}
+
+__device__ __forceinline__ bool on_vertex(float qx, float qy, float qz, float4 pa, float4 pb,
+                                          float4 pc) {
+  return (pa.x == qx && pa.y == qy && pa.z == qz) || (pb.x == qx && pb.y == qy && pb.z == qz) ||
+         (pc.x == qx && pc.y == qy && pc.z == qz);
+}
+
+// every pair of the warp has |n| < d, with d below FLT_MIN counted as 0
+// (.ftz): then 0 < d and r = n / d lies in (-1, 1)
+__device__ __forceinline__ bool warp_all_inner(const float (&n)[W_QUERIES],
+                                               const float (&d)[W_QUERIES]) {
+  static_assert(W_QUERIES == 4, "the vote below compares four pairs");
+  uint32_t all;
+  asm volatile("{\n"
+      ".reg .pred p;\n"
+      "setp.lt.ftz.f32 p, %1, %2;\n"
+      "setp.lt.and.ftz.f32 p, %3, %4, p;\n"
+      "setp.lt.and.ftz.f32 p, %5, %6, p;\n"
+      "setp.lt.and.ftz.f32 p, %7, %8, p;\n"
+      "vote.sync.all.pred p, p, 0xffffffff;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(all)
+      : "f"(fabsf(n[0])), "f"(d[0]), "f"(fabsf(n[1])), "f"(d[1]), "f"(fabsf(n[2])), "f"(d[2]),
+        "f"(fabsf(n[3])), "f"(d[3]));
+  return all != 0;
+}
+
 __global__ void __launch_bounds__(W_THREADS)
-winding_kernel(const float* __restrict__ q, const float* __restrict__ ta,
-               const float* __restrict__ tb, const float* __restrict__ tc,
-               float* __restrict__ partial, int nq, int nf, int per_split) {
-  __shared__ float4 tile[W_TILE * 3];
-  float* flat = reinterpret_cast<float*>(tile);
-  const int qi = blockIdx.x * W_THREADS + threadIdx.x;
-  const int f0 = blockIdx.y * per_split;
-  const int f1 = min(nf, f0 + per_split);
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (qi < nq) {
-    qx = q[3 * qi];
-    qy = q[3 * qi + 1];
-    qz = q[3 * qi + 2];
-  }
-  float total = 0.f;
-  for (int base = f0; base < f1; base += W_TILE) {
-    const int n = min(W_TILE, f1 - base);
-    __syncthreads();  // the previous tile is read by every thread
-    for (int i = threadIdx.x; i < n * 9; i += W_THREADS) {
-      const int f = i / 9, c = i - 9 * (i / 9);
-      const float* src = c < 3 ? ta : (c < 6 ? tb : tc);
-      flat[f * 12 + c] = src[3 * (base + f) + c % 3];
+winding_kernel(const float* __restrict__ q, const float4* __restrict__ faces,
+               float* __restrict__ partial, int nq, int tiles, int per_split) {
+  __shared__ __align__(128) float4 ring[W_STAGES][W_TILE * 3];
+  __shared__ __align__(8) uint64_t full[W_STAGES];
+  const int t0 = blockIdx.y * per_split;
+  const int nt = max(0, min(tiles, t0 + per_split) - t0);  // this split's tiles
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) gm::mbar_init(&full[s], 1);
+    gm::mbar_fence_init();
+    for (int s = 0; s < W_STAGES && s < nt; ++s) {
+      gm::mbar_arrive_expect_tx(&full[s], W_TILE_BYTES);
+      gm::bulk_copy_g2s(ring[s], faces + static_cast<size_t>(t0 + s) * W_TILE * 3,
+                        W_TILE_BYTES, &full[s]);
     }
-    __syncthreads();
-    float sum = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const float4 p0 = tile[3 * j], p1 = tile[3 * j + 1], p2 = tile[3 * j + 2];
-      const float ax = p0.x - qx, ay = p0.y - qy, az = p0.z - qz;
-      const float bx = p0.w - qx, by = p1.x - qy, bz = p1.y - qz;
-      const float cx = p1.z - qx, cy = p1.w - qy, cz = p2.x - qz;
-      const float la = sqrtf(ax * ax + ay * ay + az * az);
-      const float lb = sqrtf(bx * bx + by * by + bz * bz);
-      const float lc = sqrtf(cx * cx + cy * cy + cz * cz);
-      const float crx = by * cz - bz * cy;
-      const float cry = bz * cx - bx * cz;
-      const float crz = bx * cy - by * cx;
-      const float num = ax * crx + ay * cry + az * crz;
-      const float den = la * lb * lc + (ax * bx + ay * by + az * bz) * lc +
-                        (bx * cx + by * cy + bz * cz) * la +
-                        (cx * ax + cy * ay + cz * az) * lb;
-      sum += atan2f(num, den);
-    }
-    total += 2.f * sum;
   }
-  if (qi < nq) partial[static_cast<size_t>(blockIdx.y) * nq + qi] = total;
+  // query j of this thread: block's first + threadIdx.x + j * W_THREADS
+  // (coalesced); past nq a copy of the last query, computed and not written
+  const int q0 = blockIdx.x * W_THREADS * W_QUERIES + threadIdx.x;
+  float qx[W_QUERIES], qy[W_QUERIES], qz[W_QUERIES], total[W_QUERIES];
+#pragma unroll
+  for (int j = 0; j < W_QUERIES; ++j) {
+    const int qi = min(q0 + j * W_THREADS, nq - 1);
+    qx[j] = q[3 * qi];
+    qy[j] = q[3 * qi + 1];
+    qz[j] = q[3 * qi + 2];
+    total[j] = 0.f;
+  }
+  __syncthreads();  // the barriers are initialised before anyone waits
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % W_STAGES;
+    gm::mbar_wait(&full[s], (i / W_STAGES) & 1);
+    const float4* tile = ring[s];
+    float sum[W_QUERIES];
+#pragma unroll
+    for (int j = 0; j < W_QUERIES; ++j) sum[j] = 0.f;
+#pragma unroll 2
+    for (int f = 0; f < W_TILE; ++f) {
+      const float4 pa = tile[3 * f], pb = tile[3 * f + 1], pc = tile[3 * f + 2];
+      float n[W_QUERIES], d[W_QUERIES];
+#pragma unroll
+      for (int j = 0; j < W_QUERIES; ++j) pair_terms(qx[j], qy[j], qz[j], pa, pb, pc, n[j], d[j]);
+      if (warp_all_inner(n, d)) {
+#pragma unroll
+        for (int j = 0; j < W_QUERIES; ++j) {
+          const float r = n[j] * rcp_approx(d[j]);
+          sum[j] = fmaf(r, atan_poly(r * r), sum[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < W_QUERIES; ++j) {
+          // a query on a vertex: den is +0, and the plain version's
+          // a . (b x c) is exactly 0 there (a zero vector), while a . N is
+          // only up to rounding (q = B or C), which would make it +-pi / 2
+          const bool vertex = d[j] == 0.f && on_vertex(qx[j], qy[j], qz[j], pa, pb, pc);
+          sum[j] = add_atan2(sum[j], vertex ? 0.f : n[j], d[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < W_QUERIES; ++j) total[j] += sum[j];
+    __syncthreads();  // every thread is done with stage s
+    if (threadIdx.x == 0 && i + W_STAGES < nt) {
+      gm::fence_proxy_async();
+      gm::mbar_arrive_expect_tx(&full[s], W_TILE_BYTES);
+      gm::bulk_copy_g2s(ring[s], faces + static_cast<size_t>(t0 + i + W_STAGES) * W_TILE * 3,
+                        W_TILE_BYTES, &full[s]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < W_QUERIES; ++j) {
+    const int qi = q0 + j * W_THREADS;
+    if (qi < nq) partial[static_cast<size_t>(blockIdx.y) * nq + qi] = total[j];
+  }
 }
 
 __global__ void winding_sum_kernel(const float* __restrict__ partial,
@@ -80,28 +248,27 @@ __global__ void winding_sum_kernel(const float* __restrict__ partial,
   if (qi >= nq) return;
   float acc = 0.f;
   for (int s = 0; s < splits; ++s) acc += partial[static_cast<size_t>(s) * nq + qi];
-  out[qi] = acc / 12.566370614359172f;  // 4 pi, rounded to f32
+  out[qi] = acc / 6.28318548f;  // 2 pi rounded to f32, half of 4 pi's f32
 }
 
 }  // namespace
 
-// queries (nq, 3), tri_a/b/c (nf, 3) f32; partial (splits, nq) f32
-// workspace; out (nq,) f32. The faces are cut into `splits` ranges of
-// whole W_TILE tiles.
-extern "C" int ppsurf_winding(const void* queries, const void* tri_a, const void* tri_b,
-                              const void* tri_c, void* partial, void* out, int nq, int nf,
-                              int splits, void* stream) {
+// queries (nq, 3) f32; faces (tiles * W_TILE, 12) f32 packed as
+// `ops/winding.py::pack_faces` packs them (16-byte aligned); partial
+// (splits, nq) f32 workspace; out (nq,) f32. The tiles are cut into
+// `splits` contiguous ranges.
+extern "C" int ppsurf_winding(const void* queries, const void* faces, void* partial, void* out,
+                              int nq, int tiles, int splits, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (nq < 0 || nf < 0 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nq < 0 || tiles < 0 || splits < 1 || splits > (tiles > 0 ? tiles : 1) ||
+      reinterpret_cast<uintptr_t>(faces) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return 0;
-  const int tiles = (nf + W_TILE - 1) / W_TILE;
-  if (splits > (tiles > 0 ? tiles : 1)) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_split = (tiles + splits - 1) / splits * W_TILE;
-  const dim3 grid((nq + W_THREADS - 1) / W_THREADS, splits);
+  const int per_split = (tiles + splits - 1) / splits;
+  const dim3 grid((nq + W_THREADS * W_QUERIES - 1) / (W_THREADS * W_QUERIES), splits);
   winding_kernel<<<grid, W_THREADS, 0, s>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(tri_a),
-      static_cast<const float*>(tri_b), static_cast<const float*>(tri_c),
-      static_cast<float*>(partial), nq, nf, per_split);
+      static_cast<const float*>(queries), static_cast<const float4*>(faces),
+      static_cast<float*>(partial), nq, tiles, per_split);
   winding_sum_kernel<<<(nq + 255) / 256, 256, 0, s>>>(static_cast<const float*>(partial),
                                                        static_cast<float*>(out), nq, splits);
   return static_cast<int>(cudaGetLastError());

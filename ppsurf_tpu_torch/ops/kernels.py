@@ -68,8 +68,8 @@ _SIGNATURES = {
     "ppsurf_topk_rows": [_P, _P, _I, _I, _I, _P],
     # cand, out, q, ncand, k, variant (index in EXTRACT_VARIANTS), stream
     "ppsurf_extract": [_P, _P, _I, _I, _I, _I, _P],
-    # queries, tri_a, tri_b, tri_c, partial sums, out, nq, nf, splits, stream
-    "ppsurf_winding": [_P] * 6 + [_I] * 3 + [_P],
+    # queries, packed faces, partial sums, out, nq, face tiles, splits, stream
+    "ppsurf_winding": [_P] * 4 + [_I] * 3 + [_P],
 }
 # launch shapes (`launch_info`): (int arguments) -> 4 long longs
 _INFO = {

@@ -13,16 +13,20 @@ and the winding number is the sum over the triangles divided by 4 pi.
 Contract: `queries` (Q, 3), `tri_a`, `tri_b`, `tri_c` (F, 3) f32 ->
 (Q,) f32. `winding_plain` tiles as the JAX function does: query tiles of
 1024, face tiles of F_TILE = 8192 padded with all-zero triangles (which
-add exactly 0), each tile's sum added into an f32 accumulator. The CUDA
-kernel (`csrc/winding.cu`) runs one thread per query over faces staged in
-shared memory and splits the face axis over blocks, adding the splits in
-a fixed order; its sums round in another order than torch's, so the two
-agree to rounding, not bit for bit.
+add 0 up to the rounding of b x c, where torch fuses a product into its
+difference), each tile's sum added into an f32 accumulator. The CUDA
+kernel (`csrc/winding.cu`) takes the faces packed by `pack_faces` (A, B,
+C and the normal N = (B - A) x (C - A), so that a . (b x c) = (A - q) . N
+is three FMAs), four queries a thread, face tiles staged by bulk copies,
+the face axis split over blocks whose sums are added in a fixed order,
+approximate square roots and an arctangent of bounded relative error
+(`ATAN_COEFFS`); it agrees with the plain version to rounding, not bit
+for bit.
 
-What bounds it on an H100: operations. 64 f32 additions and
-multiplications, three square roots and an arctangent for each (query,
-face) pair; 100 000 queries against a 647 000-face mesh are 6.5e10 pairs,
-about 4.2e12 operations. The bytes are a few MB.
+What bounds it on an H100: issued instructions. The formula is 64 f32
+additions and multiplications, three square roots and an arctangent for
+each (query, face) pair; 100 000 queries against a 647 000-face mesh are
+6.5e10 pairs, about 4.2e12 operations. The bytes are a few MB.
 """
 from __future__ import annotations
 
@@ -35,11 +39,21 @@ from ppsurf_tpu_torch.ops import kernels
 
 F_TILE = 8192  # faces a step of the plain version: (1024, F_TILE, 3) temporaries
 Q_TILE = 1024
-W_TILE = 256  # faces a step of the kernel (csrc/winding.cu)
-W_THREADS = 128  # queries a block of the kernel
+W_TILE = 128  # faces a ring stage of the kernel (csrc/winding.cu); pack_faces pads to it
+W_BLOCK_QUERIES = 128 * 4  # queries a block of the kernel: 128 threads, 4 queries each
 # blocks the kernel aims for per SM: the face axis is split until the grid
-# fills the card about 8 times over (16 blocks an SM at once)
-BLOCKS_PER_SM = 8 * 16
+# fills the card about 16 times over (about 6 blocks an SM at once)
+BLOCKS_PER_SM = 16 * 6
+# The kernel's arctangent polynomial, atan(r) / r = P(r^2) for |r| <= 1,
+# lowest power first: the text of `csrc/winding.cu`'s `atan_poly` (the CPU
+# tests hold the two equal and the f32 evaluation to its error bound).
+# BEGIN W1 ATAN COEFFS
+ATAN_COEFFS = (
+    1.0, -0.33332393, 0.19974214, -0.14041328, 0.09968473, -0.06020313,
+    0.024734065,
+    -0.004822535,
+)
+# END W1 ATAN COEFFS
 
 
 def winding_plain(queries: torch.Tensor, tri_a: torch.Tensor, tri_b: torch.Tensor,
@@ -71,6 +85,19 @@ def winding_plain(queries: torch.Tensor, tri_a: torch.Tensor, tri_b: torch.Tenso
     return torch.cat(out)
 
 
+def pack_faces(tri_a: torch.Tensor, tri_b: torch.Tensor, tri_c: torch.Tensor,
+               tile: int = W_TILE) -> torch.Tensor:
+    """The kernel's face layout: (ceil(F / tile) * tile, 12) f32 rows
+    (A, Nx, B, Ny, C, Nz) with N = (B - A) x (C - A), then all-zero rows
+    up to whole tiles. A zero row is a triangle at the origin with N = 0:
+    its numerator is +-0 over a positive denominator (or 0 over 0 for a
+    query at the origin), so it adds exactly 0."""
+    a, b, c = (t.float() for t in (tri_a, tri_b, tri_c))
+    n = torch.linalg.cross(b - a, c - a)
+    packed = torch.cat([a, n[:, :1], b, n[:, 1:2], c, n[:, 2:]], dim=1)
+    return F.pad(packed, (0, 0, 0, (-a.shape[0]) % tile))
+
+
 def winding(queries: torch.Tensor, tri_a: torch.Tensor, tri_b: torch.Tensor,
             tri_c: torch.Tensor) -> torch.Tensor:
     """Winding numbers (Q,) f32 of `queries` (Q, 3) against the triangles
@@ -89,14 +116,16 @@ def winding(queries: torch.Tensor, tri_a: torch.Tensor, tri_b: torch.Tensor,
     args = {k: t.float().contiguous() for k, t in
             (("queries", queries), ("tri_a", tri_a), ("tri_b", tri_b), ("tri_c", tri_c))}
     kernels.check_cuda_args("winding", args, {})
-    nq, nf = queries.shape[0], tri_a.shape[0]
+    nq = queries.shape[0]
     out = torch.empty(nq, dtype=torch.float32, device=queries.device)
     if nq == 0:
         return out
+    faces = pack_faces(args["tri_a"], args["tri_b"], args["tri_c"])
     sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    tiles = max(1, -(-nf // W_TILE))
-    splits = max(1, min(tiles, -(-sms * BLOCKS_PER_SM // -(-nq // W_THREADS))))
+    tiles = faces.shape[0] // W_TILE
+    splits = max(1, min(tiles, -(-sms * BLOCKS_PER_SM // -(-nq // W_BLOCK_QUERIES))))
     partial = torch.empty((splits, nq), dtype=torch.float32, device=queries.device)
-    kernels.launch("winding", "ppsurf_winding", *(kernels.ptr(t) for t in args.values()),
-                   kernels.ptr(partial), kernels.ptr(out), nq, nf, splits)
+    kernels.launch("winding", "ppsurf_winding", kernels.ptr(args["queries"]),
+                   kernels.ptr(faces), kernels.ptr(partial), kernels.ptr(out), nq, tiles,
+                   splits)
     return out

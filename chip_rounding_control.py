@@ -6,7 +6,7 @@ W1 (the metrics' winding number) to.
 
 Runs `chip_smoke.py` (with a short reconstruction) on this checkout and on
 copies of it in which one step of a kernel is removed: a rounding step of
-the bf16 K3-K5 epilogues, or a term or guard of W1's arithmetic. It prints
+the bf16 K3-K5 epilogues, or a term, guard or choice of W1's arithmetic. It prints
 each run's kernel check lines and exit code. The limits are sound where the
 unchanged run passes and each copy fails the checks of the kernel it
 changes. Needs one CUDA card; the copies live in a temporary directory that
@@ -69,10 +69,15 @@ MUTANTS = {
         "ppsurf_tpu_torch/csrc/winding.cu",
         "const float hi = fmaxf(fmaxf(an, ad), W_FLT_MIN);",
         "const float hi = fmaxf(an, ad);"),
-    "W1 numerator of a query on a vertex not zeroed (a . N rounds on B and C)": (
+    "W1 numerator of a query on or near C not taken from C (a . N rounds there)": (
         "ppsurf_tpu_torch/csrc/winding.cu",
-        "sum[j] = add_atan2(sum[j], vertex ? 0.f : n[j], d[j]);",
-        "sum[j] = add_atan2(sum[j], n[j], d[j]);"),
+        "  if (lc < lv) { vx = cx; vy = cy; vz = cz; }\n",
+        ""),
+    "W1 numerator a . N for every query (the first design's, near B and C)": (
+        "ppsurf_tpu_torch/csrc/winding.cu",
+        "  if (lb < lv) { vx = bx; vy = by; vz = bz; lv = lb; }\n"
+        "  if (lc < lv) { vx = cx; vy = cy; vz = cz; }\n",
+        ""),
 }
 # what chip_smoke.py needs of the checkout
 NEEDED = ("chip_smoke.py", "ppsurf_tpu_torch", "native", "models_pretrained", "configs")

@@ -97,14 +97,16 @@ In order, it:
     plain version on the card at the metrics' shape (100 000 seed-42 cube
     samples against the 50NN mesh of phase 4: |w - plain| <= 1e-4, inside
     masks equal wherever |plain - 0.5| > 1e-3), then on faces no tile
-    divides, a single face, degenerate faces, queries on vertices and odd
-    query counts under the same limits; W1 no further than twice its plain
-    version (or 1e-5) from a float64 winding number on 2048 of the
-    samples, and on a soup of large triangles where f32 cancels; W1's time (CUDA events, median of
+    divides, a single face, degenerate faces, queries on vertices, odd
+    query counts and queries 1e-2 to 1e-5 edges from a face's B or C
+    (a closed icosphere, small random triangles) under the same limits; W1
+    no further than twice its plain version (or 1e-5) from a float64
+    winding number on 2048 of the samples, on the near-vertex queries, and
+    on a soup of large triangles where f32 cancels; W1's time (CUDA events, median of
     5) and the plain version's (one call), its bound, the SFU floor of its
     MUFU operations (3 square roots and a reciprocal a pair) and the SASS
     instructions its pair loop issues a pair (with --w1-baseline FILE,
-    also those of W1's first design built from FILE, and the two timed
+    also those of an earlier W1 built from FILE, and the two timed
     in turns at the production shape); then scores the 50NN mesh against the ground truth
     (Chamfer, IoU, F1, normal error, seconds each; W1 must launch 4 times),
     the ground truth meshed at res 129 (IoU and F1 at least 0.99) and the
@@ -980,17 +982,18 @@ def sass_line(tag: str, r: typing.Optional[dict]) -> str:
 
 
 def w1_baseline(path: str):
-    """W1's first design (one query a thread, 256-face tiles), from its
-    `winding.cu` at `path` (its C entry: queries, tri_a, tri_b, tri_c,
-    partial, out, nq, nf, splits, stream): nvcc with the port's flags into
-    a temporary directory. Returns the winding function on that design's
-    launch rule and the build's SASS."""
+    """An earlier build of W1 from its `winding.cu` at `path`, with this
+    one's C entry (queries, packed faces, partial, out, nq, tiles, splits,
+    stream): nvcc with the port's flags into a temporary directory. Returns
+    the winding function on `ops/winding.py`'s launch rule and the build's
+    SASS."""
     import ctypes
     import shutil
 
     import torch
 
     from ppsurf_tpu_torch.ops import kernels
+    from ppsurf_tpu_torch.ops.winding import BLOCKS_PER_SM, W_BLOCK_QUERIES, W_TILE, pack_faces
 
     tmp = tempfile.mkdtemp(prefix="w1_baseline_")
     obj, so = os.path.join(tmp, "winding.o"), os.path.join(tmp, "libw1_baseline.so")
@@ -1000,17 +1003,18 @@ def w1_baseline(path: str):
     lib = ctypes.CDLL(so)
     shutil.rmtree(tmp)
     fn = lib.ppsurf_winding
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def winding_baseline(q, a, b, c):
-        nq, nf = q.shape[0], a.shape[0]
+        nq = q.shape[0]
+        faces = pack_faces(a, b, c)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        tiles = max(1, -(-nf // 256))
-        splits = max(1, min(tiles, -(-sms * 8 * 16 // -(-nq // 128))))
+        tiles = faces.shape[0] // W_TILE
+        splits = max(1, min(tiles, -(-sms * BLOCKS_PER_SM // -(-nq // W_BLOCK_QUERIES))))
         partial = torch.empty((splits, nq), dtype=torch.float32, device=q.device)
         out = torch.empty(nq, dtype=torch.float32, device=q.device)
-        rc = fn(*(t.data_ptr() for t in (q, a, b, c, partial, out)), nq, nf, splits,
+        rc = fn(*(t.data_ptr() for t in (q, faces, partial, out)), nq, tiles, splits,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             fail(f"the baseline W1 launch failed (cudaError {rc})")
@@ -1019,27 +1023,59 @@ def w1_baseline(path: str):
     return winding_baseline, sass
 
 
-def winding_f64(q, a, b, c):
-    """The winding number in float64 (the reference W1 and its plain
-    version are both held to; the same formula, 256 queries x 8192 faces
-    a step)."""
-    import math
+def icosphere(level: int, radius: float):
+    """A closed icosphere: the icosahedron split `level` times (20 * 4^level
+    faces), vertices on the sphere; (vertices f32, faces)."""
+    import numpy as np
 
-    import torch
+    t = (1 + 5 ** 0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t], [0, 1, t],
+                  [0, -1, -t], [0, 1, -t], [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]])
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9],
+                  [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2],
+                  [3, 2, 6], [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10],
+                  [8, 6, 7], [9, 8, 1]])
+    for _ in range(level):
+        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+        mid = v.shape[0] + inv.reshape(3, -1).T
+        v = np.concatenate([v, 0.5 * (v[uniq[:, 0]] + v[uniq[:, 1]])])
+        f = np.concatenate([np.stack([f[:, 0], mid[:, 0], mid[:, 2]], 1),
+                            np.stack([mid[:, 0], f[:, 1], mid[:, 1]], 1),
+                            np.stack([mid[:, 2], mid[:, 1], f[:, 2]], 1), mid])
+    return (v / np.linalg.norm(v, axis=1, keepdims=True) * radius).astype(np.float32), f
 
-    q, a, b, c = (t.double() for t in (q, a, b, c))
-    out = []
-    for qq in q.split(256):
-        acc = torch.zeros(qq.shape[0], dtype=torch.float64, device=q.device)
-        for s in range(0, a.shape[0], 8192):
-            x, y, z = (t[s:s + 8192][None] - qq[:, None] for t in (a, b, c))
-            lx, ly, lz = x.norm(dim=-1), y.norm(dim=-1), z.norm(dim=-1)
-            num = (x * torch.linalg.cross(y, z)).sum(-1)
-            den = (lx * ly * lz + (x * y).sum(-1) * lz + (y * z).sum(-1) * lx
-                   + (z * x).sum(-1) * ly)
-            acc += 2.0 * torch.atan2(num, den).sum(-1)
-        out.append(acc / (4.0 * math.pi))
-    return torch.cat(out)
+
+def near_vertex_cases() -> dict:
+    """name -> (queries, a, b, c): a closed 5 120-face icosphere and 20 000
+    random triangles with edges about 1/256, each with queries t edges from
+    the B and the C vertex of 64 of its faces, t in {1e-2, 1e-3, 1e-4,
+    1e-5}, along +-N, in the face's plane away from the face (the two edges
+    at the vertex reversed, the vertex minus the centroid) and from six
+    random directions."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    verts, faces = icosphere(4, 0.3)
+    soup = rng.uniform(-0.4, 0.4, (20000, 1, 3)) + rng.normal(
+        size=(20000, 3, 3)) / 256 / 3 ** 0.5
+    cases = {"a 5120-face icosphere": [verts[faces[:, i]] for i in range(3)],
+             "20000 small random triangles": [soup[:, i].astype(np.float32) for i in range(3)]}
+    out = {}
+    for name, (a, b, c) in cases.items():
+        qs = []
+        for f in rng.choice(a.shape[0], 64, replace=False):
+            p = np.stack([a[f], b[f], c[f]]).astype(np.float64)
+            n = np.cross(p[1] - p[0], p[2] - p[0])
+            n /= np.linalg.norm(n)
+            edge = np.mean([np.linalg.norm(p[i] - p[i - 1]) for i in range(3)])
+            for k in (1, 2):
+                dirs = [n, -n, p[k] - p.mean(0)] + [p[k] - p[j] for j in range(3) if j != k]
+                for d in dirs + list(rng.normal(size=(6, 3))):
+                    for t in (1e-2, 1e-3, 1e-4, 1e-5):
+                        qs.append(p[k] + t * edge * d / np.linalg.norm(d))
+        out[name] = (np.asarray(qs, np.float32), a, b, c)
+    return out
 
 
 def winding_checks(check, results, gen, dev, mesh, sass: str,
@@ -1047,11 +1083,12 @@ def winding_checks(check, results, gen, dev, mesh, sass: str,
     """W1 against its plain version on the card: the production shape (the
     metrics' 100 000 seed-42 cube samples against the 50NN mesh), then
     faces no tile divides, a single face, degenerate faces, queries on
-    vertices and query counts no block divides. |w - plain| <= W1_ATOL, and
-    the inside masks equal wherever |plain - 0.5| > W1_BAND. On 2048 of the
-    samples, and on a soup of large triangles, W1 against float64. Prints
+    vertices, query counts no block divides and queries near a face's B or
+    C (`near_vertex_cases`). |w - plain| <= W1_ATOL, and the inside masks
+    equal wherever |plain - 0.5| > W1_BAND. On 2048 of the samples, the
+    near-vertex queries and a soup of large triangles, W1 against float64. Prints
     the SASS instructions of the pair loop a pair (`w1_pair_sass`); with
-    `baseline` (the first design's winding.cu), that build's too, and the
+    `baseline` (an earlier winding.cu), that build's too, and the
     two timed in turns at the production shape (baseline, this tree, this tree,
     baseline)."""
     import numpy as np
@@ -1138,6 +1175,15 @@ def winding_checks(check, results, gen, dev, mesh, sass: str,
                          ("5000 faces + 400 degenerate, Q=1001", q[:1001], degenerate),
                          ("1001 queries, 500 on vertices, 8193 faces", on_vertex, sub)):
         compare(name, winding(qq, *tt), winding_plain(qq, *tt))
+    # queries 1e-2 to 1e-5 edges from a face's B or C, from every direction
+    # (the numerator's rounding grows with the distance to the vertex it
+    # is taken from), on a closed icosphere and on small random triangles
+    for name, (qq, *tt) in near_vertex_cases().items():
+        qq, tt = torch.from_numpy(qq).to(dev), [torch.from_numpy(t).to(dev) for t in tt]
+        w_n, p_n = winding(qq, *tt), winding_plain(qq, *tt)
+        compare(f"{qq.shape[0]} queries near vertices of {name}", w_n, p_n)
+        against_f64(f"{qq.shape[0]} queries near vertices of {name}", w_n, p_n,
+                    winding_f64(qq, *tt))
     # a soup of large triangles across a sphere: queries near their planes
     # cancel in f32 in both versions, so W1 is held to float64 there
     pts = torch.randn(3 * 200000, 3, generator=gen, device=dev)
@@ -1202,8 +1248,8 @@ def main() -> int:
     ap.add_argument("--passes", type=int, default=10)
     ap.add_argument("--refine", type=int, default=10)
     ap.add_argument("--w1-baseline", default=None,
-                    help="the first W1 design's csrc/winding.cu: phase 13 also builds it "
-                         "and times the two in turns")
+                    help="an earlier csrc/winding.cu with this one's C entry: phase 13 also "
+                         "builds it and times the two in turns")
     ap.add_argument("--profile", default=None,
                     help="trace the reconstruction; write kernel time by name here")
     args = ap.parse_args()

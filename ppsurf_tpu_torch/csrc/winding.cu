@@ -17,11 +17,14 @@
 //   three float4 a face, (A, Nx) (B, Ny) (C, Nz), zero-padded to whole
 //   tiles: the numerator is three FMAs with no cross product, and a
 //   padding face adds exactly 0 (N = 0 gives a numerator of +-0 over a
-//   positive denominator, or a query on a vertex, below). a . N rounds by
-//   about eps |a||N| where a . (b x c) rounds by eps |a||b||c|: the same
-//   but for a query far closer to B or C than to A. Exactly on a vertex
-//   the plain version's numerator is exactly 0 (a zero vector) and the
-//   denominator +0; the general path finds that case and takes 0 too;
+//   positive denominator, or +-0 over +0 for a query at the origin);
+// - the numerator is v . N with v the difference vector of the face vertex
+//   nearest the query (a . N = b . N = c . N in real arithmetic): v . N
+//   rounds by about eps |v||N|, which shrinks as the query nears that
+//   vertex, as the true numerator does (a . N alone lost the quadrant a
+//   1e-4 edge from B or C). A query on a vertex takes that vertex's zero
+//   vector, so its numerator is exactly +-0 over a denominator of +0, as
+//   the plain version's a . (b x c) is, and the pair adds 0;
 // - a block of W_THREADS threads, W_QUERIES queries each, walks a
 //   contiguous range of face tiles (grid.y splits the face axis), staged
 //   W_TILE faces at a time into a W_STAGES-deep shared-memory ring by 1-D
@@ -121,7 +124,8 @@ __device__ __forceinline__ float add_atan2(float sum, float n, float d) {
               sum + __uint_as_float(__float_as_uint(base) ^ sign));
 }
 
-// numerator a . N and denominator of one (query, face) pair
+// numerator v . N (v of the vertex nearest q, ties to A, then B) and
+// denominator of one (query, face) pair
 __device__ __forceinline__ void pair_terms(float qx, float qy, float qz, float4 pa, float4 pb,
                                            float4 pc, float& n, float& d) {
   const float ax = pa.x - qx, ay = pa.y - qy, az = pa.z - qz;
@@ -130,19 +134,16 @@ __device__ __forceinline__ void pair_terms(float qx, float qy, float qz, float4 
   const float la = sqrt_approx(fmaf(az, az, fmaf(ay, ay, ax * ax)));
   const float lb = sqrt_approx(fmaf(bz, bz, fmaf(by, by, bx * bx)));
   const float lc = sqrt_approx(fmaf(cz, cz, fmaf(cy, cy, cx * cx)));
-  n = fmaf(az, pc.w, fmaf(ay, pb.w, ax * pa.w));
+  float vx = ax, vy = ay, vz = az, lv = la;
+  if (lb < lv) { vx = bx; vy = by; vz = bz; lv = lb; }
+  if (lc < lv) { vx = cx; vy = cy; vz = cz; }
+  n = fmaf(vz, pc.w, fmaf(vy, pb.w, vx * pa.w));
   const float ab = fmaf(az, bz, fmaf(ay, by, ax * bx));
   const float bc = fmaf(bz, cz, fmaf(by, cy, bx * cx));
   const float ca = fmaf(cz, az, fmaf(cy, ay, cx * ax));
   // (|a||b| + a.b)|c| + (b.c)|a| + (c.a)|b|, from +0: a query on a vertex
   // gives +0 (as the plain version's sum does), never -0
   d = fmaf(ca, lb, fmaf(bc, la, fmaf(lc, fmaf(la, lb, ab), 0.f)));
-}
-
-__device__ __forceinline__ bool on_vertex(float qx, float qy, float qz, float4 pa, float4 pb,
-                                          float4 pc) {
-  return (pa.x == qx && pa.y == qy && pa.z == qz) || (pb.x == qx && pb.y == qy && pb.z == qz) ||
-         (pc.x == qx && pc.y == qy && pc.z == qz);
 }
 
 // every pair of the warp has |n| < d, with d below FLT_MIN counted as 0
@@ -216,13 +217,7 @@ winding_kernel(const float* __restrict__ q, const float4* __restrict__ faces,
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < W_QUERIES; ++j) {
-          // a query on a vertex: den is +0, and the plain version's
-          // a . (b x c) is exactly 0 there (a zero vector), while a . N is
-          // only up to rounding (q = B or C), which would make it +-pi / 2
-          const bool vertex = d[j] == 0.f && on_vertex(qx[j], qy[j], qz[j], pa, pb, pc);
-          sum[j] = add_atan2(sum[j], vertex ? 0.f : n[j], d[j]);
-        }
+        for (int j = 0; j < W_QUERIES; ++j) sum[j] = add_atan2(sum[j], n[j], d[j]);
       }
     }
 #pragma unroll

@@ -16,8 +16,10 @@ Contract: `queries` (Q, 3), `tri_a`, `tri_b`, `tri_c` (F, 3) f32 ->
 add 0 up to the rounding of b x c, where torch fuses a product into its
 difference), each tile's sum added into an f32 accumulator. The CUDA
 kernel (`csrc/winding.cu`) takes the faces packed by `pack_faces` (A, B,
-C and the normal N = (B - A) x (C - A), so that a . (b x c) = (A - q) . N
-is three FMAs), four queries a thread, face tiles staged by bulk copies,
+C and the normal N = (B - A) x (C - A), so that a . (b x c) = v . N is
+three FMAs, with v the difference vector of the face vertex nearest the
+query: its rounding shrinks near that vertex as the true value does),
+four queries a thread, face tiles staged by bulk copies,
 the face axis split over blocks whose sums are added in a fixed order,
 approximate square roots and an arctangent of bounded relative error
 (`ATAN_COEFFS`); it agrees with the plain version to rounding, not bit

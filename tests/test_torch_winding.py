@@ -14,12 +14,16 @@ exact product-sum, the reciprocal and square roots exactly rounded):
 - `pack_faces`: N = (B - A) x (C - A), the row layout, zero rows up to
   whole tiles; a padding face adds exactly 0 through the plain formula on
   the packed form and through the kernel's arithmetic;
-- the kernel's pair loop (packed faces, per-tile sums, the general path
-  for every pair, whose bits the fast path gives) on a closed sphere mesh
-  with queries on vertices and degenerate faces, within 1e-5 of
-  `winding_plain` and of the JAX package's `_winding_tiled`, and no
-  further from float64 than twice the plain version (or 1e-5): the
-  smoke's W1 limits, here on the model.
+- the kernel's pair loop (packed faces, the numerator from the face
+  vertex nearest the query, per-tile sums, the general path for every
+  pair, whose bits the fast path gives) on a closed sphere mesh with
+  queries on vertices and degenerate faces, within 1e-5 of `winding_plain`
+  and of the JAX package's `_winding_tiled`, and no further from float64
+  than twice the plain version (or 1e-5): the smoke's W1 limits, here on
+  the model;
+- a near-vertex probe under the same limits: queries 1e-2 to 1e-5 edges
+  from a face's B or C, from every direction, on a closed icosphere and
+  on small random triangles; the first design's a . N numerator fails it.
 W1 itself against its plain version is in `tests/test_torch_package.py`
 (marked `cuda`) and `chip_smoke.py` phase 13.
 """
@@ -191,9 +195,12 @@ def test_pack_faces_layout_normal_and_padding():
     assert pack_model(*(np.zeros((0, 3), f32),) * 3).shape == (0, 12)
 
 
-def pair_terms(q, faces):
-    """The kernel's `pair_terms`: numerator a . N and denominator for every
-    (query, face) pair, (Q, F) each."""
+def pair_terms(q, faces, nearest: bool = True):
+    """The kernel's `pair_terms`: numerator and denominator for every
+    (query, face) pair, (Q, F) each. The numerator is v . N with v the
+    difference vector of the face vertex nearest the query (ties to A, then
+    B); `nearest=False` is the first design's a . N, which the near-vertex
+    probe must catch."""
     q = q[:, None, :]
     pa, pb, pc = faces[None, :, 0:4], faces[None, :, 4:8], faces[None, :, 8:12]
     a = (pa[..., :3] - q).astype(f32)
@@ -206,27 +213,30 @@ def pair_terms(q, faces):
 
     la, lb, lc = (np.sqrt(dot(x, x)).astype(f32) for x in (a, b, c))
     nrm = np.stack([pa[..., 3], pb[..., 3], pc[..., 3]], axis=-1)
-    num = dot(a, nrm)
+    v = a
+    if nearest:
+        take_b = lb < la
+        v = np.where(take_b[..., None], b, a)
+        v = np.where((lc < np.where(take_b, lb, la))[..., None], c, v)
+    num = dot(v, nrm)
     ab, bc, ca = dot(a, b), dot(b, c), dot(c, a)
     den = fma(ca, lb, fma(bc, la, fma(lc, fma(la, lb, ab), f32(0))))
     return num, den
 
 
-def winding_model(q, a, b, c):
+def winding_model(q, a, b, c, nearest: bool = True):
     """W1's arithmetic: packed faces, per-tile f32 sums of the fused
     arctangent steps added into a running total, divided by 2 pi. One
-    split (the kernel adds the splits' totals in split order)."""
+    split (the kernel adds the splits' totals in split order). A query on
+    a vertex takes that vertex's zero difference vector as v, so its
+    numerator is exactly +-0, as the plain version's is."""
     faces = pack_model(a, b, c)
     total = np.zeros(q.shape[0], f32)
     for t in range(0, faces.shape[0], pw.W_TILE):
-        num, den = pair_terms(q, faces[t:t + pw.W_TILE])
-        tile = faces[t:t + pw.W_TILE]
+        num, den = pair_terms(q, faces[t:t + pw.W_TILE], nearest)
         s = np.zeros(q.shape[0], f32)
         for f in range(num.shape[1]):
-            # the general path's vertex case: den +0 and q on a vertex
-            vertex = (den[:, f] == 0) & (q[:, None, :] == tile[f, [[0, 1, 2], [4, 5, 6],
-                                                                   [8, 9, 10]]]).all(-1).any(-1)
-            s = add_atan2(s, np.where(vertex, f32(0), num[:, f]), den[:, f])
+            s = add_atan2(s, num[:, f], den[:, f])
         total = (total + s).astype(f32)
     return (total / f32(2 * math.pi)).astype(f32)
 
@@ -296,3 +306,104 @@ def test_kernel_model_matches_plain_jax_and_float64(sphere):
     assert err <= max(2 * err_plain, 1e-5), (err, err_plain)
     inside = np.linalg.norm(q[:300], axis=1) < 0.28
     assert inside.any() and np.abs(model[:300][inside] - 1).max() < 1e-3
+
+
+def icosphere(level: int, radius: float):
+    """A closed icosphere: the icosahedron split `level` times, 20 * 4^level
+    faces, vertices on the sphere."""
+    t = (1 + 5 ** 0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t], [0, 1, t],
+                  [0, -1, -t], [0, 1, -t], [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]],
+                 np.float64)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9],
+                  [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2],
+                  [3, 2, 6], [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10],
+                  [8, 6, 7], [9, 8, 1]], np.int64)
+    for _ in range(level):
+        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+        mid = v.shape[0] + inv.reshape(3, -1).T  # midpoints of (01, 12, 20)
+        v = np.concatenate([v, 0.5 * (v[uniq[:, 0]] + v[uniq[:, 1]])])
+        f = np.concatenate([np.stack([f[:, 0], mid[:, 0], mid[:, 2]], 1),
+                            np.stack([mid[:, 0], f[:, 1], mid[:, 1]], 1),
+                            np.stack([mid[:, 2], mid[:, 1], f[:, 2]], 1), mid])
+    v = v / np.linalg.norm(v, axis=1, keepdims=True) * radius
+    return v.astype(f32), f
+
+
+def near_vertex_queries(a, b, c, faces, rng):
+    """Queries t edges from vertex B and from vertex C of the faces
+    `faces`, t in 1e-2 ... 1e-5, from every direction of approach: along
+    +-N, in the face's plane away from the face (the two edges at the
+    vertex reversed, and the vertex minus the centroid), and from six
+    random directions."""
+    out = []
+    for f in faces:
+        p = np.stack([a[f], b[f], c[f]]).astype(np.float64)
+        n = np.cross(p[1] - p[0], p[2] - p[0])
+        n /= np.linalg.norm(n)
+        edge = np.mean([np.linalg.norm(p[i] - p[i - 1]) for i in range(3)])
+        for k in (1, 2):  # B, C
+            vert = p[k]
+            others = [p[j] for j in range(3) if j != k]
+            dirs = [n, -n, vert - p.mean(0)] + [vert - o for o in others]
+            dirs += list(rng.normal(size=(6, 3)))
+            for d in dirs:
+                d = d / np.linalg.norm(d)
+                for t in (1e-2, 1e-3, 1e-4, 1e-5):
+                    out.append(vert + t * edge * d)
+    return np.asarray(out, f32)
+
+
+def random_small_triangles(rng, n: int):
+    """`n` triangles at random places in the unit cube, edges about 1/256."""
+    centre = rng.uniform(-0.4, 0.4, (n, 1, 3))
+    corners = centre + rng.normal(size=(n, 3, 3)) * (1 / 256 / 3 ** 0.5)
+    return tuple(corners[:, i].astype(f32) for i in range(3))
+
+
+@pytest.fixture(scope="module")
+def near_vertex_cases():
+    """(name, queries, a, b, c): a closed 5 120-face icosphere and 2 000
+    random small triangles, each with queries near the B and C vertices of
+    some faces."""
+    rng = np.random.default_rng(5)
+    verts, faces = icosphere(4, 0.3)
+    a, b, c = (verts[faces[:, i]] for i in range(3))
+    cases = [("icosphere", near_vertex_queries(a, b, c, rng.choice(len(faces), 6, False), rng),
+              a, b, c)]
+    a, b, c = random_small_triangles(rng, 2000)
+    cases.append(("small triangles",
+                  near_vertex_queries(a, b, c, rng.choice(len(a), 6, False), rng), a, b, c))
+    return cases
+
+
+def _near_vertex_errors(case, nearest: bool):
+    """(|model - float64|, the limit max(2 |plain - float64|, 1e-5), inside
+    masks differing where |plain - 0.5| > 1e-3) for one probe case."""
+    _, q, a, b, c = case
+    model = winding_model(q, a, b, c, nearest)
+    plain = pw.winding_plain(*(torch.from_numpy(x) for x in (q, a, b, c))).numpy()
+    ref = np.concatenate([winding_f64(q[i:i + 128], a, b, c) for i in range(0, len(q), 128)])
+    far = np.abs(plain - 0.5) > 1e-3
+    flips = int(((model > 0.5) != (plain > 0.5))[far].sum())
+    err_plain = np.abs(plain - ref).max()
+    return np.abs(model - ref).max(), max(2 * err_plain, 1e-5), flips
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["icosphere", "small_triangles"])
+def test_kernel_model_near_a_vertex(near_vertex_cases, which):
+    """The near-vertex probe under the smoke's W1 limits: the numerator
+    taken from the face vertex nearest the query stays within twice the
+    plain version's distance from float64 (or 1e-5), and the inside masks
+    agree wherever the plain version is clear of 0.5."""
+    err, limit, flips = _near_vertex_errors(near_vertex_cases[which], nearest=True)
+    assert err <= limit and flips == 0, (err, limit, flips)
+
+
+def test_near_vertex_probe_catches_the_a_dot_n_numerator(near_vertex_cases):
+    """The probe is sharp: the first design's a . N numerator breaks the
+    float64 rule on both shapes."""
+    for case in near_vertex_cases:
+        err, limit, _ = _near_vertex_errors(case, nearest=False)
+        assert err > limit, (case[0], err, limit)

@@ -4,7 +4,8 @@ W1 (the metrics' winding number) to.
 
     python3 chip_rounding_control.py
 
-Runs `chip_smoke.py` (with a short reconstruction) on this checkout and on
+Runs `chip_smoke.py` (with a short reconstruction, without the campaign
+phase) on this checkout and on
 copies of it in which one step of a kernel is removed: a rounding step of
 the bf16 K3-K5 epilogues, or a term, guard or choice of W1's arithmetic. It prints
 each run's kernel check lines and exit code. The limits are sound where the
@@ -21,7 +22,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SMOKE_ARGS = ["--resolution", "33", "--passes", "1", "--refine", "1"]
+SMOKE_ARGS = ["--resolution", "33", "--passes", "1", "--refine", "1", "--no-campaign"]
 
 # name -> (source, text, the text with one rounding step removed)
 MUTANTS = {

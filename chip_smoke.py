@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (ppsurf_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--resolution N] [--passes N] [--refine N]
-                          [--profile FILE] [--w1-baseline FILE]
+                          [--profile FILE] [--w1-baseline FILE] [--no-campaign]
 
 (with --profile, the training phase's kernel table goes to FILE.train)
 
@@ -112,10 +112,25 @@ In order, it:
     the ground truth meshed at res 129 (IoU and F1 at least 0.99) and the
     ground truth against itself (Chamfer 0, IoU 1, F1 1 exactly, normal
     error under 0.05 rad);
-14. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
+14. runs the campaign: `python -m ppsurf_tpu_torch.campaigns.full_run_pps_mini`
+    (in this process) on phase 11's dataset with 11 of phase 12's seeded
+    solids added for training and exact signed distances for the test
+    shapes' queries, cut to 2 epochs at full width (res 129 as
+    `configs/ppsurf_mini.yaml`): `last.pt`, the test report and the score
+    tables must be written (the few-epoch model may reconstruct nothing);
+    then `python -m ppsurf_tpu_torch.eval.make_comparison --render` over
+    its results and phase 11's committed-weights 50NN results, and
+    `figures.comp_base.merge_comps`: the per-metric comparison CSVs (a
+    finite cell where a method has the mesh, empty where not),
+    `comp_mean` (a finite 50NN row), a `cd_vis` PLY and `.npz` a mesh,
+    every PNG valid (signature, IHDR, 1024 x 1024, something drawn), the
+    HTML report naming each shape and method, the merged CSV and `.tex`;
+    K1 must launch in fit, K1 and K3-K5 in predict, W1 4 times a mesh
+    scored, and nothing in the comparison;
+15. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
 
-Phases 4, 7-11, each part of 12 and each scoring of 13 reset every
+Phases 4, 7-11, each part of 12 and 14 and each scoring of 13 reset every
 kernel's launch count just before they run and read it just after; each
 fails if a kernel of its path did not launch.
 
@@ -183,6 +198,16 @@ def torus_cloud(n: int, seed: int):
     return pts.astype(np.float32)
 
 
+def torus_sdf(x, y, z):
+    """Signed distance to `torus_cloud`'s torus and sphere (negative inside)."""
+    import numpy as np
+
+    ring = np.sqrt((x + 0.1) ** 2 + y ** 2) - 0.28
+    torus = np.sqrt(ring ** 2 + z ** 2) - 0.1
+    sphere = np.sqrt((x - 0.3) ** 2 + y ** 2 + (z - 0.25) ** 2) - 0.15
+    return np.minimum(torus, sphere)
+
+
 def torus_gt_mesh(res: int):
     """Ground truth of `torus_cloud`: the port's host marching cubes of the
     exact distance to its torus and sphere (two disjoint closed surfaces,
@@ -193,11 +218,7 @@ def torus_gt_mesh(res: int):
     from ppsurf_tpu_torch.recon.marching_cubes import marching_cubes
 
     x = np.linspace(-0.5, 0.5, res)
-    gx, gy, gz = np.meshgrid(x, x, x, indexing="ij")
-    ring = np.sqrt((gx + 0.1) ** 2 + gy ** 2) - 0.28
-    torus = np.sqrt(ring ** 2 + gz ** 2) - 0.1
-    sphere = np.sqrt((gx - 0.3) ** 2 + gy ** 2 + (gz - 0.25) ** 2) - 0.15
-    verts, faces = marching_cubes(np.minimum(torus, sphere), 0.0)
+    verts, faces = marching_cubes(torus_sdf(*np.meshgrid(x, x, x, indexing="ij")), 0.0)
     return Mesh(vertices=(verts / (res - 1) - 0.5).astype(np.float32), faces=faces)
 
 
@@ -1023,6 +1044,29 @@ def w1_baseline(path: str):
     return winding_baseline, sass
 
 
+def winding_f64(q, a, b, c):
+    """The winding number in float64 (the reference W1 and its plain
+    version are both held to; the same formula, 256 queries x 8192 faces
+    a step)."""
+    import math
+
+    import torch
+
+    q, a, b, c = (t.double() for t in (q, a, b, c))
+    out = []
+    for qq in q.split(256):
+        acc = torch.zeros(qq.shape[0], dtype=torch.float64, device=q.device)
+        for s in range(0, a.shape[0], 8192):
+            x, y, z = (t[s:s + 8192][None] - qq[:, None] for t in (a, b, c))
+            lx, ly, lz = x.norm(dim=-1), y.norm(dim=-1), z.norm(dim=-1)
+            num = (x * torch.linalg.cross(y, z)).sum(-1)
+            den = (lx * ly * lz + (x * y).sum(-1) * lz + (y * z).sum(-1) * lx
+                   + (z * x).sum(-1) * ly)
+            acc += 2.0 * torch.atan2(num, den).sum(-1)
+        out.append(acc / (4.0 * math.pi))
+    return torch.cat(out)
+
+
 def icosphere(level: int, radius: float):
     """A closed icosphere: the icosahedron split `level` times (20 * 4^level
     faces), vertices on the sphere; (vertices f32, faces)."""
@@ -1242,6 +1286,178 @@ def scoring_phase(check, results, tmp: str, mesh, gt) -> None:
                   "error < 0.05 rad; 1 where one fails)", float(not same), 0.0)
 
 
+# the campaign phase: training solids added to phase 11's dataset, the mini
+# run cut in length only (configs/ppsurf_mini.yaml at full width, res 129)
+CAMPAIGN_SHAPES = {"trainset": 10, "valset": 1}
+CAMPAIGN_EPOCHS = 2
+COMPARISON_TABLES = ("chamfer_distance", "iou", "normal_error", "f1")
+
+
+def write_campaign_dataset(root: str, names, seed: int = 5) -> str:
+    """Phase 11's dataset (`root/tiny`: the test shapes' clouds and ground
+    truth) made a training set in the reference layout: seeded solids of
+    phase 12 for `trainset.txt` and `valset.txt`, and 2 000 queries in
+    [-0.5, 0.5]^3 with their exact signed distances for each test shape
+    (`torus_sdf`); returns its test set's path."""
+    import numpy as np
+
+    from ppsurf_tpu_torch.io.ply import save_ply
+
+    rng = np.random.RandomState(seed)
+    ds = os.path.join(root, "tiny")
+    for d in ("05_query_pts", "05_query_dist"):
+        os.makedirs(os.path.join(ds, d), exist_ok=True)
+
+    def queries_of(name, queries, dist):
+        np.save(os.path.join(ds, "05_query_pts", name + ".ply.npy"), queries)
+        np.save(os.path.join(ds, "05_query_dist", name + ".ply.npy"), dist.astype(np.float32))
+
+    kinds, i = ("sphere", "torus", "ellipsoid"), 0
+    for split, count in CAMPAIGN_SHAPES.items():
+        split_names = []
+        for _ in range(count):
+            name = f"{kinds[i % 3]}_{i:02d}"
+            queries = (rng.rand(TRAIN_QUERIES, 3) - 0.5).astype(np.float32)
+            surf, dist = solid(kinds[i % 3], rng, int(rng.randint(20000, 60001)), queries)
+            save_ply(os.path.join(ds, "04_pts_vis", name + ".xyz.ply"), surf)
+            queries_of(name, queries, dist)
+            split_names.append(name)
+            i += 1
+        with open(os.path.join(ds, f"{split}.txt"), "w") as fp:
+            fp.write("\n".join(split_names) + "\n")
+    for name in names:
+        queries = (rng.rand(TRAIN_QUERIES, 3) - 0.5).astype(np.float32)
+        queries_of(name, queries, torus_sdf(*queries.T.astype(np.float64)))
+    return os.path.join(ds, "testset.txt")
+
+
+def campaign_phase(root: str, names) -> None:
+    """Phase 14: `python -m ppsurf_tpu_torch.campaigns.full_run_pps_mini`
+    (fit, test, predict through `cli.main`, here in this process) on phase
+    11's dataset with training solids added, cut to CAMPAIGN_EPOCHS epochs;
+    then `python -m ppsurf_tpu_torch.eval.make_comparison --render` over its
+    results and phase 11's committed-weights 50NN results, and
+    `figures.comp_base.merge_comps`. Every kernel's launch count is reset
+    before each part and read after: K1 must launch in fit, K1 and K3-K5 in
+    predict, W1 4 times a mesh scored."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch.campaigns import full_run_pps_mini
+    from ppsurf_tpu_torch.eval import make_comparison
+    from ppsurf_tpu_torch.figures.comp_base import merge_comps
+    from ppsurf_tpu_torch.ops import kernels
+    from ppsurf_tpu_torch.utils.png import read_png
+
+    in_file = write_campaign_dataset(root, names)
+    results, comp = os.path.join(root, "results"), os.path.join(root, "comp")
+    parts = {}
+    cli_main = full_run_pps_mini.main
+
+    def counted(argv):
+        kernels.reset_launches()
+        t = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        parts[argv[0]] = (dict(kernels.LAUNCHES), time.perf_counter() - t, rc)
+        return rc
+
+    cwd = os.getcwd()
+    os.chdir(HERE)  # the twin's config paths are relative to the checkout
+    full_run_pps_mini.main = counted
+    try:
+        full_run_pps_mini.run([
+            "--data.init_args.in_file", in_file,
+            "--trainer.max_epochs", str(CAMPAIGN_EPOCHS),
+            "--trainer.default_root_dir", os.path.join(root, "models", "ppsurf_mini"),
+            "--model.init_args.results_dir", results])
+    finally:
+        full_run_pps_mini.main = cli_main
+        os.chdir(cwd)
+    rdir = os.path.join(results, "ppsurf_mini", "tiny")
+    meshes = {n: os.path.isfile(os.path.join(rdir, "meshes", f"{n}.xyz.ply")) for n in names}
+    for part, (launch, secs, rc) in parts.items():
+        print(f"# campaign {part}: rc {rc}, {secs:.2f} s; launches "
+              f"{json.dumps({k: v for k, v in launch.items() if v})}", flush=True)
+    ckpt = os.path.join(root, "models", "ppsurf_mini", "version_0", "checkpoints", "last.pt")
+    want = [ckpt, os.path.join(rdir, "metrics_ppsurf_mini.csv")]
+    want += [os.path.join(rdir, f"{t}.csv") for t in SCORE_TABLES]
+    missing = [w for w in want if not os.path.isfile(w)]
+    print(f"# campaign: meshes {meshes} (a few-epoch model may print 'No reconstruction'); "
+          f"missing outputs {missing}", flush=True)
+    if sorted(parts) != ["fit", "predict", "test"] or missing:
+        fail(f"the campaign ran {sorted(parts)} and did not write {missing}")
+    fit_l, pred_l = parts["fit"][0], parts["predict"][0]
+    if not fit_l["knn"] or any(pred_l[k] == 0 for k in ("knn", "decoder_tail", "pointnet_trunk",
+                                                         "pointnet_head")):
+        fail(f"the campaign did not run on its kernels: fit {fit_l}, predict {pred_l}")
+    if pred_l["winding"] != 4 * sum(meshes.values()):
+        fail(f"W1 launched {pred_l['winding']} times for {sum(meshes.values())} scored meshes")
+
+    kernels.reset_launches()
+    t = time.perf_counter()
+    rc = make_comparison.main(["--data_dir", root, "--results_dir", results,
+                               "--dataset_names", "tiny", "--comp_dir", comp, "--render"])
+    merged = merge_comps("campaign", ["tiny"], comp)
+    secs = time.perf_counter() - t
+    methods = ("ppsurf_50nn", "ppsurf_mini")
+    has_mesh = {("ppsurf_50nn", n): True for n in names}
+    has_mesh.update({("ppsurf_mini", n): m for n, m in meshes.items()})
+    print(f"# make_comparison --render, methods {methods}: rc {rc}, {secs:.2f} s (with "
+          f"merge_comps); launches {sum(kernels.LAUNCHES.values())}", flush=True)
+    problems = [] if rc == 0 else [f"rc {rc}"]
+    cdir = os.path.join(comp, "tiny")
+    for table in COMPARISON_TABLES:
+        with open(os.path.join(cdir, f"{table}.csv")) as fp:
+            rows = [line.rstrip("\n").split(",") for line in fp]
+        if rows[0][1:] != list(methods) or [r[0] for r in rows[1:3]] != list(names):
+            problems.append(f"{table}.csv laid out as {rows[:3]}")
+            continue
+        for r in rows[1:3]:
+            for m, cell in zip(methods, r[1:]):
+                if (cell != "") != has_mesh[(m, r[0])] or (cell and not np.isfinite(float(cell))):
+                    problems.append(f"{table}.csv {m} {r[0]}: {cell!r}")
+    with open(os.path.join(cdir, "comp_mean.csv")) as fp:
+        mean = {r[0]: r[1:] for r in (line.rstrip("\n").split(",") for line in fp)}
+    print(f"# comp_mean: {mean}", flush=True)
+    if not all(c and np.isfinite(float(c)) for c in mean.get("ppsurf_50nn", [""])[:3]):
+        problems.append(f"comp_mean's ppsurf_50nn row {mean.get('ppsurf_50nn')}")
+    if not any(meshes.values()) and any(mean.get("ppsurf_mini", ["x"])[:3]):
+        problems.append(f"comp_mean's ppsurf_mini row without meshes {mean.get('ppsurf_mini')}")
+    pngs = [os.path.join(cdir, "renders", kind, f"{n}.png") for kind in ("gt", "pc") for n in names]
+    for m in methods:
+        for n in names:
+            if has_mesh[(m, n)]:
+                base = os.path.join(results, m, "tiny")
+                for f in (os.path.join(base, "cd_vis", f"{n}.xyz.ply"),
+                          os.path.join(base, "cd_vis", f"{n}.xyz.npz")):
+                    if not os.path.isfile(f):
+                        problems.append(f"no {os.path.relpath(f, root)}")
+                pngs.append(os.path.join(base, "cd_vis_renders", f"{n}.png"))
+    for png in pngs:
+        try:
+            img = read_png(png)
+        except (OSError, ValueError) as exc:
+            problems.append(f"{os.path.relpath(png, root)}: {exc}")
+            continue
+        if img.shape != (1024, 1024, 3) or not (img != 255).any():
+            problems.append(f"{os.path.relpath(png, root)}: {img.shape}, "
+                            f"{int((img != 255).any(axis=2).sum())} pixels drawn")
+    with open(os.path.join(comp, "reports", "comp_all_tiny.html")) as fp:
+        html = fp.read()
+    absent = [w for w in [n.replace("_", " ") for n in names]
+              + [m.replace("_", " ") for m in methods] if w not in html]
+    if absent:
+        problems.append(f"the HTML report does not name {absent}")
+    for f in (merged, merged and merged[:-4] + ".tex"):
+        if not f or not os.path.isfile(f) or not all(m in open(f).read() for m in methods):
+            problems.append(f"merge_comps wrote {f}")
+    print(f"# make_comparison: {len(pngs)} PNGs checked (signature, IHDR, 1024 x 1024, "
+          f"drawn); problems {problems}", flush=True)
+    if problems or sum(kernels.LAUNCHES.values()):
+        fail(f"make_comparison: {problems}, launches {dict(kernels.LAUNCHES)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resolution", type=int, default=257)
@@ -1252,6 +1468,8 @@ def main() -> int:
                          "builds it and times the two in turns")
     ap.add_argument("--profile", default=None,
                     help="trace the reconstruction; write kernel time by name here")
+    ap.add_argument("--no-campaign", action="store_true",
+                    help="skip phase 14 (the campaign; no kernel limits are held there)")
     args = ap.parse_args()
 
     import torch
@@ -1931,7 +2149,9 @@ def main() -> int:
     print(f"# ground truth: marching cubes of the torus and sphere at res {GT_RESOLUTION}: "
           f"{gt.vertices.shape[0]} vertices {gt.faces.shape[0]} faces in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
+    # phase 11's dataset and results stay for the campaign (phase 14)
+    shared = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    with contextlib.nullcontext(shared.name) as tmp:
         names = ("shape_a", "shape_b")
         os.makedirs(os.path.join(tmp, "tiny", "04_pts_vis"))
         os.makedirs(os.path.join(tmp, "tiny", "03_meshes"))
@@ -1989,6 +2209,13 @@ def main() -> int:
     if failures:
         fail(f"the scoring phase failed: {failures}")
     print(f"# scoring: phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 14. the campaign: full_run_pps_mini, make_comparison --render ----
+    if not args.no_campaign:
+        t0 = time.perf_counter()
+        campaign_phase(shared.name, names)
+        print(f"# campaign: phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    shared.cleanup()
 
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in

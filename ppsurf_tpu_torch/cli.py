@@ -28,6 +28,8 @@ the merged config.
 - `--device cuda` (the default) or `--device cpu`; the network computes in
   bfloat16 on the card when the trainer's precision is 16-bit, and in
   float32 on the CPU, as the JAX package picks its dtype from its platform.
+- `main` first tells glibc to keep freed memory (`utils/alloc.py`, as
+  `ppsurf_tpu/cli.py:275-277` does).
 - After reconstructing a dataset, `predict` scores its meshes against the
   dataset's `03_meshes` (`train.evaluate.evaluate_reconstructions`, as
   `ppsurf_tpu/cli.py:350-351`): Chamfer, F1, IoU and normal-error tables
@@ -251,7 +253,9 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     from ppsurf_tpu_torch.convert.checkpoint import load_checkpoint_variables
     from ppsurf_tpu_torch.convert.infer_npz import load_network
     from ppsurf_tpu_torch.device import resolve_device
+    from ppsurf_tpu_torch.utils.alloc import tune_host_allocator
 
+    tune_host_allocator()
     argv = list(sys.argv[1:] if argv is None else argv)
     subcommand, configs, overrides, positional, flags = parse_cli(argv)
     if subcommand == "rec":

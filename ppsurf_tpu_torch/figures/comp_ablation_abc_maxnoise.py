@@ -1,0 +1,21 @@
+"""The comp_ablation_abc_maxnoise comparison.
+
+Port of `ppsurf_tpu/figures/comp_ablation_abc_maxnoise.py`
+(reference `source/figures/comp_ablation_abc_maxnoise.py`): its datasets and
+methods, through the port's `figures/comp_base.run_comparison`.
+
+    python -m ppsurf_tpu_torch.figures.comp_ablation_abc_maxnoise
+"""
+from ppsurf_tpu_torch.figures.comp_base import run_comparison
+
+DATASETS = [
+    'abc_extra_noisy',
+]
+METHODS = [
+    'ppsurf_vanilla', 'ppsurf_vanilla_zeros_global', 'ppsurf_vanilla_zeros_local',
+    'ppsurf_vanilla_qpoints', 'ppsurf_sym_max', 'ppsurf_10nn', 'ppsurf_25nn', 'ppsurf_50nn',
+    'ppsurf_merge_sum', 'ppsurf_200nn',
+]
+
+if __name__ == "__main__":
+    run_comparison("comp_ablation_abc_maxnoise", DATASETS, methods=METHODS)

@@ -1,0 +1,19 @@
+"""The comp_ablation_dense comparison.
+
+Port of `ppsurf_tpu/figures/comp_ablation_dense.py`
+(reference `source/figures/comp_ablation_dense.py`): its datasets and
+methods, through the port's `figures/comp_base.run_comparison`.
+
+    python -m ppsurf_tpu_torch.figures.comp_ablation_dense
+"""
+from ppsurf_tpu_torch.figures.comp_base import run_comparison
+
+DATASETS = [
+    'famous_dense', 'thingi10k_scans_dense',
+]
+METHODS = [
+    'ppsurf_25nn', 'ppsurf_50nn', 'ppsurf_vanilla', 'ppsurf_merge_sum',
+]
+
+if __name__ == "__main__":
+    run_comparison("comp_ablation_dense", DATASETS, methods=METHODS)

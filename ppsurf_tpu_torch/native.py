@@ -4,9 +4,10 @@ The source is the repository's `native/ppsurf_native.cpp`, read in place.
 It is compiled with `g++` (the flags of `native/Makefile`) into this
 package's ignored build directory on first use, under a name keyed by the
 source and the host; the committed prebuilt library next to the source is
-never loaded. Every entry point has a
-numpy fallback in the calling module, so reconstruction still works where
-no host compiler exists.
+never loaded. Every entry point of reconstruction and scoring has a
+numpy fallback in the calling module, so they still work where no host
+compiler exists; the renderer (`render_mesh_native`,
+`render_points_native`) has none, and raises without the library.
 """
 from __future__ import annotations
 
@@ -95,8 +96,81 @@ def _load() -> typing.Optional[ctypes.CDLL]:
     lib.rg_next_frontier.argtypes = [
         f64p, i64, i64, i64, i32p, i64, i64, u8p, u8p, ctypes.c_uint8, i32p, i64,
     ]
+    lib.render_mesh.restype = None
+    lib.render_mesh.argtypes = [
+        f32p, i64, i32p, i64, ctypes.c_void_p, f64p, i64, i64, ctypes.c_double, u8p,
+    ]
+    lib.render_points.restype = None
+    lib.render_points.argtypes = [
+        f32p, i64, ctypes.c_void_p, f64p, i64, i64, ctypes.c_double, i64, u8p,
+    ]
     _lib = lib
     return _lib
+
+
+def _render_args(verts, colors, view, width, height, background):
+    """The renderer's checked buffers: (vertices (V, 3) f32, colors (V, 3)
+    uint8 or None, their address or None, view (4, 4) f64); the C++ side
+    writes `background` as (height, width, 3) uint8 and reads V colors."""
+    v = np.ascontiguousarray(verts, np.float32).reshape(-1, 3)
+    if background.shape != (height, width, 3) or background.dtype != np.uint8:
+        raise ValueError(f"background must be ({height}, {width}, 3) uint8, got "
+                         f"{background.dtype} {background.shape}")
+    view = np.ascontiguousarray(view, np.float64)
+    if view.shape != (4, 4):
+        raise ValueError(f"view must be (4, 4), got {view.shape}")
+    if colors is None:
+        return v, None, None, view
+    colors = np.ascontiguousarray(colors, np.uint8)
+    if colors.shape != v.shape:
+        raise ValueError(f"colors must be {v.shape} uint8, got {colors.shape}")
+    return v, colors, colors.ctypes.data, view
+
+
+def render_mesh_native(
+    verts: np.ndarray,
+    faces: np.ndarray,
+    colors: typing.Optional[np.ndarray],
+    view: np.ndarray,
+    width: int,
+    height: int,
+    fov_deg: float,
+    background: np.ndarray,
+) -> np.ndarray:
+    """Z-buffer rasterize a mesh into `background` ((H, W, 3) uint8,
+    written in place and returned): vertices (V, 3), faces (F, 3), colors
+    (V, 3) uint8 or None (Lambert-shaded), `view` the row-major 4x4
+    world-to-camera matrix, `fov_deg` the vertical field of view."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the host library native/ppsurf_native.cpp is not built")
+    v, keep, col_p, view = _render_args(verts, colors, view, width, height, background)
+    f = np.ascontiguousarray(faces, np.int32).reshape(-1, 3)  # out-of-range ids are skipped
+    lib.render_mesh(v, v.shape[0], f, f.shape[0], col_p, view, width, height, fov_deg,
+                    background)
+    del keep
+    return background
+
+
+def render_points_native(
+    verts: np.ndarray,
+    colors: typing.Optional[np.ndarray],
+    view: np.ndarray,
+    width: int,
+    height: int,
+    fov_deg: float,
+    splat: int,
+    background: np.ndarray,
+) -> np.ndarray:
+    """Splat a point cloud into `background` as squares of 2 * splat + 1
+    pixels, nearest point on top (arguments as `render_mesh_native`)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the host library native/ppsurf_native.cpp is not built")
+    v, keep, col_p, view = _render_args(verts, colors, view, width, height, background)
+    lib.render_points(v, v.shape[0], col_p, view, width, height, fov_deg, splat, background)
+    del keep
+    return background
 
 
 class RegionGrowState:

@@ -24,6 +24,7 @@ from ppsurf_tpu_torch.recon.engine import reconstruct_mesh
 from ppsurf_tpu_torch.recon.field import EncoderDraws, FieldEvaluator, LatentEncoder, Transform
 from ppsurf_tpu_torch.train.model import ModelSpec, ppsurf_spec
 from ppsurf_tpu_torch.utils import math3d
+from ppsurf_tpu_torch.utils.alloc import freeze_gc
 
 DEFAULT_WEIGHTS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -96,6 +97,9 @@ class Predictor:
 
         evaluator = FieldEvaluator(self.net, spec, pts_raw, latents, transform=transform)
         self.last_evaluator = evaluator
+        # the live object graph out of gen-2 collections, which would
+        # otherwise fire inside the host phases' numpy allocations
+        freeze_gc()
         return reconstruct_mesh(
             evaluator,
             input_points=pts_raw,

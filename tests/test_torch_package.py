@@ -1,7 +1,9 @@
 """Package rules of the PyTorch/CUDA port (ppsurf_tpu_torch).
 
-- no file of the port imports jax, flax or the JAX package, statically or
-  at run time (package, chip_smoke.py and chip_rounding_control.py);
+- no file of the port imports jax, flax or the JAX package, nor pandas,
+  PIL or openpyxl (the machine with the card has none of them),
+  statically or at run time (package, chip_smoke.py and
+  chip_rounding_control.py);
 - entry points (the predictor, the trainer, the scoring: `points_inside`,
   `evaluate_reconstructions`, `make_evaluation`) default to CUDA and
   raise where there is none;
@@ -31,7 +33,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ppsurf_tpu_torch")
 WEIGHTS = os.path.join(REPO, "models_pretrained", "ppsurf_mini_infer.npz")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ppsurf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ppsurf_tpu", "pandas", "PIL",
+             "openpyxl")
 
 
 def _port_files():
@@ -57,7 +60,12 @@ MODULES = ("cli.py", "rec.py", "data/datasets.py", "models/poco.py", "convert/in
            "train/evaluate.py", "metrics/classification.py", "eval/reports.py",
            "eval/xlsx.py", "metrics/sampling.py", "metrics/proximity.py",
            "metrics/winding.py", "metrics/mesh_metrics.py", "ops/winding.py", "utils/fs.py",
-           "eval/make_evaluation.py", "convert/torch_ckpt.py")
+           "eval/make_evaluation.py", "convert/torch_ckpt.py", "eval/make_comparison.py",
+           "utils/mp.py", "utils/container.py", "utils/visualization.py", "utils/png.py",
+           "utils/alloc.py", "figures/comp_base.py", "figures/prepare_figures.py",
+           "figures/render_figures.py", "figures/fix_imls.py",
+           "campaigns/full_run_pps.py", "campaigns/full_run_pps_mini.py",
+           "campaigns/full_run_poco.py", "campaigns/full_run_poco_mini.py")
 
 
 def test_no_file_of_the_port_imports_jax():

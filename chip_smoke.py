@@ -127,12 +127,37 @@ In order, it:
     HTML report naming each shape and method, the merged CSV and `.tex`;
     K1 must launch in fit, K1 and K3-K5 in predict, W1 4 times a mesh
     scored, and nothing in the comparison;
-15. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
+15. trains PPSurf 50NN (bf16, full width, one epoch of 2 steps at batch
+    10 on phase 12's solids) with `Trainer.fit` in a one-rank NCCL group
+    that `parallel.mesh.maybe_init_distributed` joins from torchrun's
+    environment, and twice without a group, under torch's deterministic
+    algorithms: losses, parameters and buffers bit for bit, K1 15 times a
+    cloud;
+16. runs two gloo ranks on the card (`tools/dryrun_multihost.py`; each
+    builds the kernels at first use into one empty directory, which must
+    end holding one library), one step each of PPSurf 50NN at full width
+    on a global batch of 10 (5 a rank), with sync_batch_stats False and
+    True: parameters and buffers bit-identical on both ranks, the
+    all-reduced gradients against the mean of the ranks' own gradients of
+    their halves without the group (relative L2 1e-2, worst leaf 0.25),
+    buffers rank 0's or the mean (1e-4 of a leaf's largest value), K1 15
+    times a cloud on each rank, step time and peak memory a rank;
+17. evaluates the 50NN bf16 field of phase 4's cloud over 4 full chunks
+    and a tail with `FieldEvaluator(devices=[card, card])` (two replicas,
+    one thread): bit-identical to one device, K1 and K3-K5 once a chunk,
+    seconds of both; `Predictor(devices=2)` must clamp to the one card;
+18. runs `cli fit` with `configs/profiler.yaml` stacked for 5 steps at
+    batch 4: the Chrome trace of steps 2-4 must hold those step spans and
+    K1's kernel;
+19. trains POCO with `cli fit` at full width (latent 32, k=64, batch 10,
+    bf16) for 2 epochs on phase 12's solids: finite losses, `last.pt`, K1
+    14 times a cloud, the median step time and peak memory;
+20. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
 
-Phases 4, 7-11, each part of 12 and 14 and each scoring of 13 reset every
-kernel's launch count just before they run and read it just after; each
-fails if a kernel of its path did not launch.
+Phases 4, 7-11, each part of 12 and 14, each scoring of 13 and phases
+15-19 reset every kernel's launch count just before they run and read it
+just after; each fails if a kernel of its path did not launch.
 
 Any failure exits non-zero before that last line. It needs one CUDA card
 and the repository checkout around it; it imports nothing of JAX.
@@ -604,6 +629,19 @@ def write_training_dataset(root: str, seed: int = 0) -> str:
     return os.path.join(root, "testset.txt")
 
 
+def grad_diff(ga, gb) -> typing.Tuple[float, float, str]:
+    """Gradients `ga` against `gb` (name -> tensor): the relative L2 of
+    the whole, and the worst leaf's among those above 1e-5 of the largest
+    |g| (with its name)."""
+    gmax = max(float(g.abs().max()) for g in gb.values())
+    num = sum(float(((ga[n] - gb[n]) ** 2).sum()) for n in gb)
+    den = sum(float((gb[n] ** 2).sum()) for n in gb)
+    leaves = {n: float((ga[n] - gb[n]).norm() / gb[n].norm()) for n in gb
+              if float(gb[n].abs().max()) > 1e-5 * gmax}
+    worst = max(leaves, key=leaves.get)
+    return (num / den) ** 0.5, leaves[worst], worst
+
+
 def training_phase(tmp: str, smi: str, profile: typing.Optional[str]) -> dict:
     """Phase 12: `cli fit`, an overfit run, one f32 step on the card against
     the CPU plain path, the bf16 step's time and memory, `cli test` and
@@ -831,15 +869,6 @@ def training_phase(tmp: str, smi: str, profile: typing.Optional[str]) -> dict:
     # each parameter within AdamW's first-step Lipschitz bound of its two
     # gradients, lr / eps x |g_card - g_cpu| + 1e-6; statistics within 1e-4
     # of a leaf's largest value, as tests/test_torch_train.py holds them.
-    def grad_diff(ga, gb):
-        gmax = max(float(g.abs().max()) for g in gb.values())
-        num = sum(float(((ga[n] - gb[n]) ** 2).sum()) for n in gb)
-        den = sum(float((gb[n] ** 2).sum()) for n in gb)
-        leaves = {n: float((ga[n] - gb[n]).norm() / gb[n].norm()) for n in gb
-                  if float(gb[n].abs().max()) > 1e-5 * gmax}
-        worst = max(leaves, key=leaves.get)
-        return (num / den) ** 0.5, leaves[worst], worst
-
     g_all, g_leaf, g_name = grad_diff(card["grads"], host_run["grads"])
     n_all, n_leaf, n_name = grad_diff(nets["cpu_nudged"]["grads"], host_run["grads"])
 
@@ -1458,6 +1487,341 @@ def campaign_phase(root: str, names) -> None:
         fail(f"make_comparison: {problems}, launches {dict(kernels.LAUNCHES)}")
 
 
+# the data-parallel phases (15-19) on phase 12's solids: a one-rank NCCL
+# group, two gloo ranks sharing the card, the sharded field, the profiler
+# preset and POCO training
+POCO_K1_PER_CLOUD = 14  # graph 9 x k=16 + 4 x k=1, decoder ids k=64
+
+
+def _flat_state(net) -> dict:
+    return {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def dp_one_rank_phase(tmp: str, smi: str) -> None:
+    """Phase 15: `Trainer.fit` (one epoch: 2 steps at batch 10 and a
+    validation batch, PPSurf 50NN at full width, bf16) without a process
+    group, in a one-rank NCCL group that `maybe_init_distributed` makes
+    from torchrun's environment, and without a group again, from the same
+    seeds, under torch's deterministic algorithms: the losses, parameters
+    and buffers of the group run must equal the others bit for bit (at
+    world size 1 the mean is the identity), K1 15 times a cloud."""
+    import torch
+    import torch.distributed as dist
+
+    from ppsurf_tpu_torch.data.datasets import OccupancyDataModule
+    from ppsurf_tpu_torch.ops import kernels
+    from ppsurf_tpu_torch.parallel.mesh import free_port, maybe_init_distributed
+    from ppsurf_tpu_torch.train import loop
+    from ppsurf_tpu_torch.train.model import ppsurf_spec
+
+    testset = os.path.join(tmp, "train_ds", "testset.txt")
+    spec = ppsurf_spec(dtype=torch.bfloat16)
+
+    def fit(name):
+        cfg = loop.TrainConfig(max_epochs=1, batch_size=10,
+                               default_root_dir=os.path.join(tmp, "dp1", name))
+        dm = OccupancyDataModule(testset, batch_size=10, manifold_points=10000, seed=42)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer = loop.Trainer(spec, cfg, device="cuda")
+        state = trainer.fit(dm)
+        torch.cuda.synchronize()
+        return dict(losses=[v for _, v in trainer.history], state=_flat_state(state.net),
+                    knn=kernels.LAUNCHES["knn"], seconds=time.perf_counter() - t0,
+                    ranks=trainer.mesh.size, distributed=trainer.mesh.distributed)
+
+    env_keys = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                "CUBLAS_WORKSPACE_CONFIG")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {"plain": fit("plain")}
+        os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(free_port()))
+        if not maybe_init_distributed("nccl"):
+            fail("maybe_init_distributed did not join a group from torchrun's environment")
+        backend = dist.get_backend()
+        try:
+            runs["nccl"] = fit("nccl")
+        finally:
+            dist.destroy_process_group()
+        runs["plain_again"] = fit("plain_again")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    want_knn = K1_PER_CLOUD * (2 * 10 + 2 * TRAIN_SHAPES["valset"])
+    plain, group, again = runs["plain"], runs["nccl"], runs["plain_again"]
+
+    def same(a, b):
+        return a["losses"] == b["losses"] and all(
+            torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+
+    print(f"# dp1: Trainer.fit, 1 epoch (2 steps, batch 10, ppsurf_50nn bf16): backend "
+          f"{backend}, {group['ranks']} rank, reduced {group['distributed']}; losses "
+          f"{group['losses']} vs {plain['losses']} without a group; parameters and buffers "
+          f"bit-identical to the run without a group {same(group, plain)}, the two runs "
+          f"without a group to each other {same(plain, again)}; K1 {group['knn']} launches "
+          f"(expected {want_knn}); {group['seconds']:.2f} s in the group, "
+          f"{plain['seconds']:.2f} / {again['seconds']:.2f} s without; {smi}", flush=True)
+    if backend != "nccl" or not group["distributed"] or group["ranks"] != 1:
+        fail(f"the one-rank phase did not train in an NCCL group: {backend}")
+    if not same(plain, again):
+        fail("two runs without a group differ: the training step is not deterministic here")
+    if not same(group, plain):
+        fail("the one-rank NCCL run differs from the run without a group")
+    if any(r["knn"] != want_knn for r in runs.values()):
+        fail(f"K1 launches {[r['knn'] for r in runs.values()]}, expected {want_knn} a run")
+
+
+def dp_two_ranks_phase(tmp: str, smi: str) -> None:
+    """Phase 16: two gloo ranks on the one card (`tools/dryrun_multihost.py`
+    processes; NCCL refuses two ranks on one GPU), each building the
+    kernels at first use into one empty build directory, one step each of
+    PPSurf 50NN at full width (bf16) on a global batch of 10 of phase 12's
+    solids, 5 a rank, with sync_batch_stats False and True: parameters
+    bit-identical on both ranks; the all-reduced gradients against the
+    mean of each rank's gradients of its half without the group (same
+    draws and dropout), within phase 12's limits (relative L2 1e-2, worst
+    leaf 0.25); the buffers rank 0's (or the ranks' mean) within 1e-4 of a
+    leaf's largest value; K1 15 times a cloud on each rank; one library in
+    the build directory. Step time and peak memory per rank are printed;
+    both ranks share the card, so they are no scaling figure."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch.convert.init import init_variables
+    from ppsurf_tpu_torch.data.datasets import OccupancyDataModule
+    from ppsurf_tpu_torch.tools.dryrun_multihost import run_job
+    from ppsurf_tpu_torch.train import loop
+    from ppsurf_tpu_torch.train.model import ppsurf_spec
+
+    testset = os.path.join(tmp, "train_ds", "testset.txt")
+    dm = OccupancyDataModule(testset, batch_size=10, manifold_points=10000, seed=3)
+    batch_np = next(iter(dm.epoch_batches(dm.train_dataset(), np.random.RandomState(0), True)))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch_np.items()
+             if k in loop.BATCH_KEYS}
+    variables = init_variables(ppsurf_spec(), seed=0)
+
+    def tensors(tree):
+        return {k: tensors(v) if isinstance(v, dict) else torch.from_numpy(np.array(v))
+                for k, v in tree.items()}
+
+    case = {"spec": {"kind": "ppsurf"}, "dtype": "bfloat16", "seed": 11,
+            "variables": tensors(variables), "batch": batch}
+    build_dir = os.path.join(tmp, "dp2_build")
+    job = {"device": "cuda", "build_dir": build_dir,
+           "cases": [dict(case, name="sync0", sync_batch_stats=False),
+                     dict(case, name="sync1", sync_batch_stats=True)]}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_job(job, 2, os.path.join(tmp, "dp2_ranks"), backend="gloo", timeout=600)
+    secs = time.perf_counter() - t0
+    built = sorted(os.listdir(build_dir))
+    libs = {r["lib_path"] for r in results}
+    print(f"# dp2: two gloo ranks on one card, {secs:.1f} s with the build: each rank built "
+          f"at first use in {[round(r['build_seconds'], 1) for r in results]} s into "
+          f"{os.path.relpath(build_dir, tmp)}: {built} "
+          f"{sorted(os.listdir(os.path.join(build_dir, built[0]))) if built else []}; one "
+          f"library {len(libs) == 1}", flush=True)
+    if len(built) != 1 or len(libs) != 1 or sorted(os.listdir(
+            os.path.join(build_dir, built[0]))) != ["build.log", "libppsurf_kernels.so"]:
+        fail(f"the two ranks' first builds did not leave one library: {built} {libs}")
+    bad = []
+    for ci, name in enumerate(("sync0", "sync1")):
+        r0, r1 = (r["cases"][ci] for r in results)
+        same_p = all(torch.equal(r0["params"][k], r1["params"][k]) for k in r0["params"])
+        same_b = all(torch.equal(r0["buffers"][k], r1["buffers"][k]) for k in r0["buffers"])
+        mean = {k: (r0["local_grads"][k] + r1["local_grads"][k]) / 2 for k in r0["grads"]}
+        g_all, g_leaf, g_name = grad_diff(r0["grads"], mean)
+        want_b = r0["local_buffers"] if name == "sync0" else {
+            k: (r0["local_buffers"][k] + r1["local_buffers"][k]) / 2 for k in r0["buffers"]}
+        b_err = max(float((r0["buffers"][k] - want_b[k]).abs().max()
+                          / (want_b[k].abs().max() + 1e-12)) for k in want_b)
+        knn = [r["launches"].get("knn", 0) for r in (r0, r1)]
+        print(f"# dp2 {name}: loss {r0['loss']:.6f} on both ranks {r0['loss'] == r1['loss']}; "
+              f"parameters bit-identical {same_p}, buffers {same_b}; all-reduced gradients "
+              f"against the mean of the ranks' own: rel L2 {g_all:.2e} (limit 1e-2), worst "
+              f"leaf {g_leaf:.2e} {g_name} (limit 0.25); buffers against "
+              f"{'rank 0' if name == 'sync0' else 'the mean'}: {b_err:.2e} of a leaf's max "
+              f"(limit 1e-4); K1 launches a rank {knn} (expected {K1_PER_CLOUD * 5} each)",
+              flush=True)
+        for res, r in zip(results, (r0, r1)):
+            print(f"# dp2 {name} rank {res['rank']}: step {r['step_ms']:.1f} ms (host clock, "
+                  f"synchronised; both ranks share the card), peak memory "
+                  f"{r['peak_gib']:.2f} GiB; {smi}", flush=True)
+        if not (same_p and same_b and r0["loss"] == r1["loss"]) or g_all > 1e-2 \
+                or g_leaf > 0.25 or b_err > 1e-4 or knn != [K1_PER_CLOUD * 5] * 2:
+            bad.append(name)
+    if bad:
+        fail(f"the two-rank step disagrees: {bad}")
+
+
+def sharded_field_phase(predictor, variables, cloud, smi: str) -> None:
+    """Phase 17: `FieldEvaluator` with the card listed twice (two replicas,
+    dispatched from one thread) on phase 4's cloud, 50NN bf16, over 4 full
+    chunks and a tail: the values must equal the single-device field bit
+    for bit, K1 and K3-K5 launch once a chunk; `Predictor(devices=2)`
+    clamps to the one card."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch.ops import kernels
+    from ppsurf_tpu_torch.recon.field import FieldEvaluator
+    from ppsurf_tpu_torch.recon.predict import Predictor
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    spec = predictor.spec
+    with torch.inference_mode():
+        latents = predictor.encoder(torch.from_numpy(cloud).to(dev),
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+    m = 4 * N_QUERIES + 1234
+    queries = (np.random.RandomState(17).rand(m, 3) - 0.5).astype(np.float32)
+    single = FieldEvaluator(predictor.net, spec, cloud, latents)
+    sharded = FieldEvaluator(predictor.net, spec, cloud, latents, devices=[dev, dev])
+    chunks = -(-m // sharded.chunk)
+    times = {}
+    for name, ev in (("single", single), ("sharded", sharded), ("single", single),
+                     ("sharded", sharded)):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = ev(queries)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        if name == "sharded":
+            launches = dict(kernels.LAUNCHES)
+            out_sharded = vals
+        else:
+            out_single = vals
+    clamp = Predictor(spec, variables=variables, device="cuda", verbose=False, devices=2)
+    same = np.array_equal(out_sharded, out_single)
+    print(f"# sharded field: {m} queries ({chunks} chunks of {sharded.chunk}, the last "
+          f"{m - (chunks - 1) * sharded.chunk}) on 2 replicas of the card: equal to one device "
+          f"bit for bit {same} (max |diff| {float(np.abs(out_sharded - out_single).max()):.3g});"
+          f" launches {json.dumps({k: v for k, v in launches.items() if v})}; seconds sharded "
+          f"{[round(t, 3) for t in times['sharded']]}, single {[round(t, 3) for t in times['single']]}"
+          f"; Predictor(devices=2) on {torch.cuda.device_count()} card(s): devices "
+          f"{clamp.devices}; {smi}", flush=True)
+    if not same:
+        fail("the sharded field differs from the single-device field")
+    if any(launches[k] != chunks for k in ("knn", "decoder_tail", "pointnet_trunk",
+                                            "pointnet_head")):
+        fail(f"the sharded field did not launch K1 and K3-K5 once a chunk: {launches}")
+    if torch.cuda.device_count() == 1 and clamp.devices is not None:
+        fail(f"Predictor(devices=2) did not clamp to the one card: {clamp.devices}")
+
+
+def profiler_phase(tmp: str, smi: str) -> None:
+    """Phase 18: `cli fit` with `configs/profiler.yaml` stacked (the
+    preset `trainer.profiler: jax`), 5 steps at batch 4: the Chrome trace
+    of steps 2-4 must exist, hold those three step spans and name K1's
+    kernel."""
+    import torch
+
+    from ppsurf_tpu_torch import cli
+    from ppsurf_tpu_torch.ops import kernels
+
+    configs = [a for c in ("poco", "ppsurf", "ppsurf_50nn", "profiler")
+               for a in ("-c", os.path.join(HERE, "configs", f"{c}.yaml"))]
+    root = os.path.join(tmp, "models_profiler")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["fit", *configs, "--data.init_args.in_file",
+                   os.path.join(tmp, "train_ds", "testset.txt"),
+                   "--data.init_args.batch_size", "4", "--trainer.max_epochs", "1",
+                   "--trainer.default_root_dir", root])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    knn = kernels.LAUNCHES["knn"]
+    trace = os.path.join(root, "version_0", "profile", "trace_rank0.json")
+    events = []
+    if os.path.isfile(trace):
+        with open(trace) as fp:
+            events = json.load(fp).get("traceEvents", [])
+    steps = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("train_step ")})
+    gpu = [e for e in events if e.get("cat") == "kernel"]
+    knn_events = [e for e in gpu if "knn_kernel" in e.get("name", "")]
+    n_val = TRAIN_SHAPES["valset"]
+    want = K1_PER_CLOUD * (5 * 4 + n_val + min(n_val, -n_val % 4))
+    print(f"# profiler: cli fit with configs/profiler.yaml, 5 steps at batch 4: rc {rc}, "
+          f"{secs:.2f} s; {os.path.relpath(trace, tmp)} "
+          f"{os.path.getsize(trace) / 2 ** 20 if os.path.isfile(trace) else 0:.1f} MiB: step "
+          f"spans {steps}, {len(gpu)} kernel events, {len(knn_events)} of K1 "
+          f"({knn_events[0]['name'] if knn_events else None}); K1 launches {knn} (expected "
+          f"{want}); {smi}", flush=True)
+    if rc != 0 or steps != ["train_step 2", "train_step 3", "train_step 4"] \
+            or not knn_events or knn != want:
+        fail("the profiler preset did not trace steps 2-4 with K1's kernel in them")
+
+
+def poco_training_phase(tmp: str, smi: str) -> None:
+    """Phase 19: `cli fit` with `configs/poco.yaml` at full width (latent
+    32, k=64, batch 10, bf16) for 2 epochs on phase 12's solids: every
+    loss finite, `last.pt` written, K1 14 times a cloud; the median step
+    time (host clock around each synchronised step) and peak memory."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch import cli
+    from ppsurf_tpu_torch.convert.checkpoint import load_checkpoint
+    from ppsurf_tpu_torch.ops import kernels
+    from ppsurf_tpu_torch.train import loop
+
+    root = os.path.join(tmp, "models_poco")
+    trainers, step_ms = [], []
+    fit, step = loop.Trainer.fit, loop.train_step
+
+    def capture_fit(self, *a, **kw):
+        trainers.append(self)
+        return fit(self, *a, **kw)
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    loop.Trainer.fit, loop.train_step = capture_fit, timed_step
+    kernels.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["fit", "-c", os.path.join(HERE, "configs", "poco.yaml"),
+                       "--data.init_args.in_file", os.path.join(tmp, "train_ds", "testset.txt"),
+                       "--trainer.default_root_dir", root, "--trainer.max_epochs", "2"])
+    finally:
+        loop.Trainer.fit, loop.train_step = fit, step
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    history = trainers[0].history if trainers else []
+    losses = [v for _, v in history]
+    ckpt = os.path.join(root, "version_0", "checkpoints", "last.pt")
+    n_val = TRAIN_SHAPES["valset"]
+    want = POCO_K1_PER_CLOUD * (4 * 10 + 2 * (n_val + min(n_val, -n_val % 10)))
+    knn = kernels.LAUNCHES["knn"]
+    print(f"# poco train: cli fit (poco, latent 32, k=64, bf16, batch 10, 10000 pts, "
+          f"{TRAIN_QUERIES} queries, 2 epochs) rc {rc}, {secs:.2f} s; steps "
+          f"{[s for s, _ in history]}, losses {[round(v, 4) for v in losses]}; K1 {knn} launches "
+          f"(expected {want}); step median {statistics.median(step_ms):.1f} ms (min "
+          f"{min(step_ms):.1f}, max {max(step_ms):.1f}, {len(step_ms)} steps); peak memory "
+          f"{peak:.2f} GiB; {smi}", flush=True)
+    if rc != 0 or [s for s, _ in history] != [1, 2, 3, 4] or not np.isfinite(losses).all():
+        fail(f"POCO training did not take 4 finite steps: rc {rc}, {history}")
+    if not os.path.isfile(ckpt) or load_checkpoint(ckpt)["step"] != 4:
+        fail(f"POCO training did not write {ckpt}")
+    if knn != want:
+        fail(f"POCO training launched K1 {knn} times, expected {want}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resolution", type=int, default=257)
@@ -1469,7 +1833,8 @@ def main() -> int:
     ap.add_argument("--profile", default=None,
                     help="trace the reconstruction; write kernel time by name here")
     ap.add_argument("--no-campaign", action="store_true",
-                    help="skip phase 14 (the campaign; no kernel limits are held there)")
+                    help="skip phases 14-19 (the campaign, data parallelism, the profiler "
+                         "preset, POCO training; no kernel limits are held there)")
     args = ap.parse_args()
 
     import torch
@@ -2195,10 +2560,11 @@ def main() -> int:
                 fail(f"cli predict's {table} table is not one finite row a shape: {rows}")
 
     # ---- 12. training: fit, overfit, card vs CPU, step time, test, rec ----
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        training_phase(tmp, smi, args.profile)
-        print(f"# train: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # (its solids stay for phases 15, 16, 18 and 19)
+    train_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    t0 = time.perf_counter()
+    training_phase(train_tmp.name, smi, args.profile)
+    print(f"# train: phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 13. scoring: W1 against its plain version, the 50NN mesh scored ----
     t0 = time.perf_counter()
@@ -2216,6 +2582,20 @@ def main() -> int:
         campaign_phase(shared.name, names)
         print(f"# campaign: phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
     shared.cleanup()
+
+    # ---- 15-19. data parallelism, the sharded field, the profiler preset,
+    # POCO training ----
+    for number, phase, phase_args in () if args.no_campaign else (
+            (15, dp_one_rank_phase, (train_tmp.name, smi)),
+            (16, dp_two_ranks_phase, (train_tmp.name, smi)),
+            (17, sharded_field_phase, (predictor, variables, cloud, smi)),
+            (18, profiler_phase, (train_tmp.name, smi)),
+            (19, poco_training_phase, (train_tmp.name, smi))):
+        t0 = time.perf_counter()
+        phase(*phase_args)
+        print(f"# {phase.__name__}: phase {number} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    train_tmp.cleanup()
 
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in

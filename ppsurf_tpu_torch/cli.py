@@ -15,7 +15,13 @@ the merged config.
 
 - `fit` trains from seeded weights (or resumes `--ckpt_path`) and writes
   `<trainer.default_root_dir>/version_{v}/checkpoints/last.pt` with the
-  resolved config as `config.yaml` beside it.
+  resolved config as `config.yaml` beside it. `--trainer.devices N`
+  (`auto` or unset: every local card, as the JAX package's mesh) trains
+  data-parallel: run outside a process group, `fit` spawns N ranks over
+  the local cards, one process a card, and joins them (NCCL; gloo with
+  `--device cpu`); launched by torchrun, each rank joins the group from
+  the environment (`parallel.mesh.maybe_init_distributed`, called first,
+  as `ppsurf_tpu/cli.py:280-286`).
 - `test` scores the classifier on the test set into
   `<results>/<name>/<dataset>/metrics_<name>.csv` and `.xlsx`, and
   `predict` writes the meshes (`Predictor.predict_dataset`); both take
@@ -24,7 +30,9 @@ the merged config.
   PPSurf model falls back to the committed
   `models_pretrained/ppsurf_mini_infer.npz`. Orbax checkpoints are read by
   the JAX package only. Their resolved config goes beside the checkpoint
-  as `config_test.yaml` / `config_predict.yaml`.
+  as `config_test.yaml` / `config_predict.yaml`. `predict` shards the
+  field's query chunks over `trainer.devices` local cards (clamped to
+  those present; unset: one), as the JAX package's `Predictor(devices=)`.
 - `--device cuda` (the default) or `--device cpu`; the network computes in
   bfloat16 on the card when the trainer's precision is 16-bit, and in
   float32 on the CPU, as the JAX package picks its dtype from its platform.
@@ -190,8 +198,16 @@ def build_train_config(cfg: dict, spec):
         log_every_n_steps=trainer.get("log_every_n_steps", 1),
         default_root_dir=trainer.get("default_root_dir", f"models/{spec.name}"),
         debug=bool(cfg.get("debug", False) or _section(cfg, "model").get("debug", False)),
+        num_devices=_none_if_auto(trainer.get("devices")),
         profiler=trainer.get("profiler"),
     )
+
+
+def _none_if_auto(v):
+    """`trainer.devices`: None, 'auto' and -1 mean every local device."""
+    if v in (None, "auto", -1):
+        return None
+    return int(v)
 
 
 def _none_if_neg(v):
@@ -249,10 +265,32 @@ def checkpoint_path(cfg: dict, spec, train_cfg, subcommand: str) -> str:
     return str(ckpt)
 
 
+def _fit_rank(rank: int, argv: typing.Sequence[str], world: int, port: int) -> None:
+    """One rank of a spawned `fit` (`spawn_fit`): torchrun's environment,
+    then `main`."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    rc = main(argv)
+    if rc != 0:
+        raise SystemExit(rc)
+
+
+def spawn_fit(argv: typing.Sequence[str], world: int) -> None:
+    """`fit` on `world` ranks of this host, one process each (spawned,
+    joined; a failed rank raises)."""
+    import torch.multiprocessing
+
+    from ppsurf_tpu_torch.parallel.mesh import free_port
+
+    torch.multiprocessing.start_processes(_fit_rank, args=(list(argv), world, free_port()),
+                                          nprocs=world, join=True, start_method="spawn")
+
+
 def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     from ppsurf_tpu_torch.convert.checkpoint import load_checkpoint_variables
     from ppsurf_tpu_torch.convert.infer_npz import load_network
     from ppsurf_tpu_torch.device import resolve_device
+    from ppsurf_tpu_torch.parallel.mesh import is_distributed, local_devices, maybe_init_distributed
     from ppsurf_tpu_torch.utils.alloc import tune_host_allocator
 
     tune_host_allocator()
@@ -269,6 +307,9 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
         print(yaml.safe_dump(cfg, sort_keys=False))
         return 0
     device = resolve_device(cfg.get("device", "cuda"))
+    # torchrun's ranks join their group before any launch (NCCL across
+    # cards, gloo on the CPU)
+    maybe_init_distributed("gloo" if device.type == "cpu" else "nccl")
     spec = build_spec(cfg, device)
     train_cfg = build_train_config(cfg, spec)
     datamodule = build_datamodule(cfg, spec, train_cfg)
@@ -276,12 +317,19 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     if subcommand == "fit":
         from ppsurf_tpu_torch.train.loop import Trainer
 
+        world = train_cfg.num_devices or len(local_devices(device))
+        if world > 1 and not is_distributed():
+            spawn_fit(argv, world)
+            print(f"fit: {world} ranks joined ({spec.name}, {spec.kind}, {device})")
+            return 0
         trainer = Trainer(spec, train_cfg, device=device)
-        save_resolved_config(cfg, trainer.version_dir, subcommand)
+        if trainer.is_main:
+            save_resolved_config(cfg, trainer.version_dir, subcommand)
         state = trainer.fit(datamodule, ckpt_path=cfg.get("ckpt_path"))
-        print(f"fit: {state.step} steps ({spec.name}, {spec.kind}, "
-              f"{str(spec.dtype).replace('torch.', '')}, {device}) -> "
-              f"{os.path.join(trainer.ckpt_dir, 'last.pt')}")
+        if trainer.is_main:
+            print(f"fit: {state.step} steps ({spec.name}, {spec.kind}, "
+                  f"{str(spec.dtype).replace('torch.', '')}, {trainer.device}, "
+                  f"{trainer.mesh.size} rank(s)) -> {os.path.join(trainer.ckpt_dir, 'last.pt')}")
         return 0
 
     ckpt = checkpoint_path(cfg, spec, train_cfg, subcommand)
@@ -300,7 +348,8 @@ def main(argv: typing.Optional[typing.Sequence[str]] = None) -> int:
     from ppsurf_tpu_torch.recon.predict import Predictor
     from ppsurf_tpu_torch.train.evaluate import evaluate_reconstructions
 
-    predictor = Predictor(spec, variables=variables, device=device)
+    predictor = Predictor(spec, variables=variables, device=device,
+                          devices=train_cfg.num_devices)
     results = predictor.predict_dataset(datamodule.predict_dataset())
     done = [r for r in results if r[1] is not None]
     for name, out_file, seconds in done:

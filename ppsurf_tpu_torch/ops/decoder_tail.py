@@ -221,6 +221,7 @@ def decoder_tail(latents: torch.Tensor, pts: torch.Tensor, queries: torch.Tensor
     if c:
         kernels.launch(
             "decoder_tail" if lat == 256 else "decoder_tail_l32", "ppsurf_decoder_tail",
+            latents.device,
             *(kernels.ptr(a) for a in (
                 latents, pts, queries, ids, t.w1, t.w2, t.b2, t.w3, t.b3,
                 t.wq, t.bq, t.wv, t.bv, t.wpack, out)),

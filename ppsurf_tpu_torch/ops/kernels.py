@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 import typing
 
@@ -123,31 +124,34 @@ def _digest() -> str:
     return h.hexdigest()[:12]
 
 
-def build() -> KernelLibrary:
-    """Compile every source (in parallel) and link the library; cached
-    in-process and on disk by content hash."""
-    global _LIBRARY
-    if _LIBRARY is not None:
-        return _LIBRARY
-    t0 = time.perf_counter()
-    digest = _digest()
-    out_dir = os.path.join(BUILD_DIR, digest)
+def build_library() -> typing.Tuple[str, str]:
+    """Compile every source (in parallel) and link the library unless the
+    build of these sources and flags is on disk; returns (library path,
+    what nvcc printed).
+
+    Processes that build at once (ranks at first use) each compile and
+    link in a private temporary directory and move the finished log, then
+    the finished library, into `_build/<hash>/` with `os.replace`: a
+    reader that finds the library finds its log, and every library there
+    is one build's whole output."""
+    out_dir = os.path.join(BUILD_DIR, _digest())
     lib_path = os.path.join(out_dir, "libppsurf_kernels.so")
     log_path = os.path.join(out_dir, "build.log")  # what nvcc printed, kept with it
-    log = ""
     if os.path.isfile(lib_path) and os.path.isfile(log_path):
         with open(log_path) as fp:
-            log = fp.read()
-    else:
-        os.makedirs(out_dir, exist_ok=True)
-        nvcc = _nvcc()
+            return lib_path, fp.read()
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    work = tempfile.mkdtemp(prefix="build.", dir=out_dir)
+    try:
         procs = []
         for name in SOURCES:
-            obj = os.path.join(out_dir, name.replace(".cu", ".o"))
+            obj = os.path.join(work, name.replace(".cu", ".o"))
             cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o", obj]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )))
+        log = ""
         objs = []
         failed = []
         for name, obj, proc in procs:
@@ -158,19 +162,30 @@ def build() -> KernelLibrary:
             objs.append(obj)
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        lib_tmp = os.path.join(work, os.path.basename(lib_path))
         link = subprocess.run(
-            [nvcc, "-shared", "-o", tmp, *objs],
+            [nvcc, "-shared", "-o", lib_tmp, *objs],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         log += f"== link\n{link.stdout}"
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{log}")
-        with open(f"{log_path}.{os.getpid()}.tmp", "w") as fp:
+        with open(os.path.join(work, "build.log"), "w") as fp:
             fp.write(log)
-        os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
-        os.replace(tmp, lib_path)
-    _LIBRARY = KernelLibrary(lib_path, log, time.perf_counter() - t0)
+        os.replace(os.path.join(work, "build.log"), log_path)
+        os.replace(lib_tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path, log
+
+
+def build() -> KernelLibrary:
+    """The loaded kernel library (`build_library`), cached in-process."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        t0 = time.perf_counter()
+        path, log = build_library()
+        _LIBRARY = KernelLibrary(path, log, time.perf_counter() - t0)
     return _LIBRARY
 
 
@@ -178,12 +193,16 @@ def ptr(t: typing.Optional[torch.Tensor]) -> typing.Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def launch(kernel: str, symbol: str, *args) -> None:
-    """Call C entry `symbol` on the current stream, raise on a launch
-    error, and count one launch of `kernel`."""
+def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
+    """Call C entry `symbol` with `device` (the card its tensors are on)
+    current and on that card's current stream, raise on a launch error,
+    and count one launch of `kernel`. The C entries read the current
+    device (`cudaGetDevice`) for their per-card settings, so the device
+    is entered here, whichever card the caller had current."""
     lib = build()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib.lib, symbol)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib.lib, symbol)(*args, stream)
     if rc != 0:
         msg = lib.lib.ppsurf_error_string(rc).decode()
         raise RuntimeError(f"{symbol} launch failed: {msg} (cudaError {rc})")

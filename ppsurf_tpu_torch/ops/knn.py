@@ -173,7 +173,7 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int,
     out = torch.empty((queries.shape[0], k), dtype=torch.int64, device=queries.device)
     if queries.shape[0]:
         kernels.launch(
-            "knn" if k <= 128 else "knn_k192", "ppsurf_knn", kernels.ptr(pts4),
+            "knn" if k <= 128 else "knn_k192", "ppsurf_knn", queries.device, kernels.ptr(pts4),
             kernels.ptr(boxes), kernels.ptr(queries), kernels.ptr(out),
             boxes.shape[0], queries.shape[0], k, KNN_BLOCK,
         )

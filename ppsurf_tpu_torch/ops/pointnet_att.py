@@ -250,6 +250,7 @@ def pointnet_trunk(patches: torch.Tensor, t: PointNetTables):
     if c:
         kernels.launch(
             "pointnet_trunk" if p <= 64 else "pointnet_trunk_wide", "ppsurf_pointnet_trunk",
+            patches.device,
             *(kernels.ptr(a) for a in (patches, *t.trunk_w, t.trunk_aff, t.trunk_pack,
                                        b, pooled)),
             c, p, kernels.dtype_code(t.dt),
@@ -268,6 +269,7 @@ def pointnet_head(x2: torch.Tensor, t: PointNetTables) -> torch.Tensor:
     if c:
         kernels.launch(
             "pointnet_head" if p <= 64 else "pointnet_head_wide", "ppsurf_pointnet_head",
+            x2.device,
             *(kernels.ptr(a) for a in (x2, *t.head_w, t.head_aff, t.bqv, t.head_pack,
                                        out)),
             c, p, kernels.dtype_code(t.dt),

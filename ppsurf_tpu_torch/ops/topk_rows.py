@@ -59,6 +59,6 @@ def topk_rows(d2: torch.Tensor, k: int) -> torch.Tensor:
     kernels.check_cuda_args("topk_rows", {"d2": d2}, {})
     out = torch.empty((c, k), dtype=torch.int64, device=d2.device)
     if c:
-        kernels.launch("topk_rows", "ppsurf_topk_rows", kernels.ptr(d2),
+        kernels.launch("topk_rows", "ppsurf_topk_rows", d2.device, kernels.ptr(d2),
                        kernels.ptr(out), c, kc, k)
     return out

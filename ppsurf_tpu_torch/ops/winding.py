@@ -127,7 +127,7 @@ def winding(queries: torch.Tensor, tri_a: torch.Tensor, tri_b: torch.Tensor,
     tiles = faces.shape[0] // W_TILE
     splits = max(1, min(tiles, -(-sms * BLOCKS_PER_SM // -(-nq // W_BLOCK_QUERIES))))
     partial = torch.empty((splits, nq), dtype=torch.float32, device=queries.device)
-    kernels.launch("winding", "ppsurf_winding", kernels.ptr(args["queries"]),
+    kernels.launch("winding", "ppsurf_winding", queries.device, kernels.ptr(args["queries"]),
                    kernels.ptr(faces), kernels.ptr(partial), kernels.ptr(out), nq, tiles,
                    splits)
     return out

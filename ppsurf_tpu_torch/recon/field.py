@@ -25,6 +25,16 @@ and `source/poco_utils.py:67-82`):
   nearest picked from those candidates (K2) in place of a full kNN; the
   vertices whose certificate fails are refined again on the plain path,
   where every round is a full field evaluation with its own kNN.
+- Sharded evaluation (`FieldEvaluator(devices=[...])`, the JAX package's
+  `_make_eval_sharded`, `field.py:187-224, 745-764`): the cloud, the
+  projected latents, the weights and the kernels' tables are replicated
+  on each listed device, and a grid evaluation sends one full chunk to
+  each device in turn from the calling thread (`parallel/mesh.py` says
+  why one thread), then gathers the values in query order on the first
+  device. Full chunks left over (fewer than the devices) and the tail run
+  on the first device, and so does refinement, as in the JAX package.
+  Every chunk runs the same code on the same inputs, so the field equals
+  the single-device one.
 
 Every entry point runs under `torch.inference_mode()`: no autograd graph
 is recorded, whether or not the network's parameters require gradients.
@@ -35,6 +45,7 @@ the caller's order.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import typing
 
@@ -60,6 +71,36 @@ REFINE_CAND_K = 192
 
 def _ceil_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _moved(x, device: torch.device):
+    """`x` (a tensor, or a dataclass, tuple, list or dict holding
+    tensors) with every tensor copied to `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _moved(getattr(x, f.name), device)
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(_moved(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: _moved(v, device) for k, v in x.items()}
+    return x
+
+
+@dataclasses.dataclass
+class _Replica:
+    """What one device evaluates the field with: the network, the sorted
+    cloud with K1's blocking, the projected latents and the kernels'
+    tables, all on `device`."""
+
+    device: torch.device
+    net: torch.nn.Module
+    pts: torch.Tensor
+    blocks: typing.Any
+    latents: torch.Tensor
+    decoder: typing.Any
+    point_net: typing.Any
 
 
 @dataclasses.dataclass
@@ -130,14 +171,21 @@ class FieldEvaluator:
 
     @torch.inference_mode()
     def __init__(self, net, spec: ModelSpec, pts: np.ndarray,
-                 latents: torch.Tensor, transform: typing.Optional[Transform] = None):
+                 latents: torch.Tensor, transform: typing.Optional[Transform] = None,
+                 devices: typing.Optional[typing.Sequence[typing.Union[str, torch.device]]] = None):
         """pts (N, 3) the cloud that carries the latents and the patches;
         latents (N, L) on the evaluation device; transform optional
         (values (C,), queries (C, 3)) -> (C,) post-processing of the field
-        (e.g. an analytic blend), seen by growth and refinement alike."""
+        (e.g. an analytic blend), seen by growth and refinement alike,
+        applied on the evaluation device. `devices`, where given, shard the
+        grid evaluation: one replica a listed device (a device may be
+        listed twice), the first the evaluation device, which the latents
+        move to."""
         self.net = net
         self.spec = spec
         self.transform = transform
+        if devices:
+            latents = latents.to(devices[0])
         self.device = latents.device
         self.dtype = spec.dtype
         self.chunk = _ceil_to(spec.rec_batch_size, 128)
@@ -164,6 +212,45 @@ class FieldEvaluator:
         ).to(self.dtype).contiguous()
         self.decoder = decoder_tables(net.projection, self.dtype)
         self.point_net = pointnet_tables(net.point_net) if spec.is_ppsurf else None
+        first = _Replica(self.device, net, self.pts, self.blocks, self.latents, self.decoder,
+                         self.point_net)
+        self.replicas = [first] + [self._replica(first, torch.device(d))
+                                   for d in (devices or [])[1:]]
+
+    @staticmethod
+    def _replica(first: _Replica, device: torch.device) -> _Replica:
+        """A copy of the first replica on `device`: the tensors copied, so
+        every replica computes on the same bits."""
+        return _Replica(device, copy.deepcopy(first.net).to(device),
+                        *(_moved(x, device) for x in (first.pts, first.blocks, first.latents,
+                                                     first.decoder, first.point_net)))
+
+    def _field(self, rep: _Replica, q: torch.Tensor,
+               ids: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """q (C, 3) on `rep`'s device -> the field (C,) there, before the
+        transform."""
+        patch_ids = None
+        if self.patch_k > self.k:
+            patch_ids = knn(rep.pts, q, self.patch_k, blocks=rep.blocks)
+            if ids is None:
+                ids = patch_ids[:, : self.k].contiguous()
+        elif ids is None:
+            ids = knn(rep.pts, q, self.k, blocks=rep.blocks)
+        pooled = decoder_tail(rep.latents, rep.pts, q, ids, rep.decoder)
+        data = {"feat_proj": rep.net.projection.fc8(pooled)[None]}
+        if self.spec.is_ppsurf:
+            if patch_ids is None:
+                patch_ids = ids[:, : self.patch_k]
+            patches = patch_space(rep.pts[patch_ids], q)
+            data["feat_pn"] = pointnet_att(patches.to(self.dtype), rep.point_net)[None]
+        logits = rep.net.from_latent(data)[0]
+        probs = torch.softmax(logits.float(), dim=-1)
+        # p(class 0) - p(class 1): zero-crossing is the surface
+        # (`poco_utils.py:79-81`)
+        return probs[:, 0] - probs[:, 1]
+
+    def _finish(self, vals: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        return vals if self.transform is None else self.transform(vals, q)
 
     @torch.inference_mode()
     def eval_chunk(self, q: torch.Tensor,
@@ -171,28 +258,7 @@ class FieldEvaluator:
         """q (C, 3) f32 on the device -> field values (C,) f32. `ids` (C, k)
         are q's k nearest cloud ids, nearest first, where the caller has
         them (the candidate refinement); else K1 finds them."""
-        patch_ids = None
-        if self.patch_k > self.k:
-            patch_ids = knn(self.pts, q, self.patch_k, blocks=self.blocks)
-            if ids is None:
-                ids = patch_ids[:, : self.k].contiguous()
-        elif ids is None:
-            ids = knn(self.pts, q, self.k, blocks=self.blocks)
-        pooled = decoder_tail(self.latents, self.pts, q, ids, self.decoder)
-        data = {"feat_proj": self.net.projection.fc8(pooled)[None]}
-        if self.spec.is_ppsurf:
-            if patch_ids is None:
-                patch_ids = ids[:, : self.patch_k]
-            patches = patch_space(self.pts[patch_ids], q)
-            data["feat_pn"] = pointnet_att(patches.to(self.dtype), self.point_net)[None]
-        logits = self.net.from_latent(data)[0]
-        probs = torch.softmax(logits.float(), dim=-1)
-        # p(class 0) - p(class 1): zero-crossing is the surface
-        # (`poco_utils.py:79-81`)
-        vals = probs[:, 0] - probs[:, 1]
-        if self.transform is not None:
-            vals = self.transform(vals, q)
-        return vals
+        return self._finish(self._field(self.replicas[0], q, ids), q)
 
     def _sorted(self, *arrays: np.ndarray, order: np.ndarray) -> typing.List[torch.Tensor]:
         return [torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)[order]))
@@ -207,8 +273,16 @@ class FieldEvaluator:
         self.stat_queries += m
         order = morton_order(queries, *self._bbox)
         (q,) = self._sorted(queries, order=order)
-        vals = torch.cat([self.eval_chunk(q[s:s + self.chunk])
-                          for s in range(0, m, self.chunk)])
+        chunks = [q[s:s + self.chunk] for s in range(0, m, self.chunk)]
+        d = len(self.replicas)
+        full = m // self.chunk
+        vals, i = [], 0
+        while d > 1 and full - i >= d:  # one full chunk a replica, in order
+            group = [self._field(rep, chunks[i + j].to(rep.device))
+                     for j, rep in enumerate(self.replicas)]
+            vals += [self._finish(v.to(self.device), chunks[i + j]) for j, v in enumerate(group)]
+            i += d
+        vals = torch.cat(vals + [self.eval_chunk(c) for c in chunks[i:]])
         out = np.empty((m,), np.float32)
         out[order] = vals.cpu().numpy()
         return out

@@ -20,6 +20,7 @@ from ppsurf_tpu_torch.data.datasets import ShapeDataset, get_results_dir, in_fil
 from ppsurf_tpu_torch.device import resolve_device
 from ppsurf_tpu_torch.io.ply import Mesh
 from ppsurf_tpu_torch.io.point_cloud import load_pts, pre_process_pts
+from ppsurf_tpu_torch.parallel.mesh import get_data_mesh, is_distributed
 from ppsurf_tpu_torch.recon.engine import reconstruct_mesh
 from ppsurf_tpu_torch.recon.field import EncoderDraws, FieldEvaluator, LatentEncoder, Transform
 from ppsurf_tpu_torch.train.model import ModelSpec, ppsurf_spec
@@ -41,15 +42,25 @@ class Predictor:
     `DEFAULT_WEIGHTS` (its PointNet takes any patch size, so they serve
     every `num_pts_local`); no POCO weights are committed. device defaults
     to CUDA and raises if none is present; pass device='cpu' to run the
-    plain PyTorch path.
+    plain PyTorch path. `devices` shards the field's query chunks over
+    the first that many local devices of `device`'s type
+    (`recon/field.py`), clamped to those present, as
+    `ppsurf_tpu/recon/predict.py:36-53`; None or 1, or a process group
+    (one device a rank), evaluates on `device` alone.
     """
 
     def __init__(self, spec: typing.Optional[ModelSpec] = None,
                  variables: typing.Optional[dict] = None,
                  weights: typing.Optional[str] = None,
                  device: typing.Union[str, torch.device, None] = None,
-                 verbose: bool = True):
+                 verbose: bool = True, devices: typing.Optional[int] = None):
         self.device = resolve_device(device)
+        self.devices = None  # the sharded field's devices
+        if devices is not None and not is_distributed():  # a rank drives one device
+            local = get_data_mesh(devices, self.device).devices  # clamped to those present
+            if len(local) > 1:
+                self.devices = list(local)
+                self.device = self.devices[0]
         self.spec = spec or ppsurf_spec()
         if variables is None:
             if weights is None and not self.spec.is_ppsurf:
@@ -95,7 +106,8 @@ class Predictor:
         marks["encode"] = time.perf_counter() - t0
         self._progress(f"latents for {pts_raw.shape[0]} pts in {marks['encode']:.2f}s")
 
-        evaluator = FieldEvaluator(self.net, spec, pts_raw, latents, transform=transform)
+        evaluator = FieldEvaluator(self.net, spec, pts_raw, latents, transform=transform,
+                                   devices=self.devices)
         self.last_evaluator = evaluator
         # the live object graph out of gen-2 collections, which would
         # otherwise fire inside the host phases' numpy allocations

@@ -144,7 +144,7 @@ def extract(cand: torch.Tensor, variant: str, k: int) -> torch.Tensor:
         cand = padded
     out = torch.empty((q, k), dtype=torch.float32, device=cand.device)
     if q:
-        kernels.launch(f"extract_{variant}", "ppsurf_extract", kernels.ptr(cand),
+        kernels.launch(f"extract_{variant}", "ppsurf_extract", cand.device, kernels.ptr(cand),
                        kernels.ptr(out), q, n, k, VARIANTS.index(variant))
     return out
 

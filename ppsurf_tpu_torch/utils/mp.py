@@ -6,8 +6,9 @@ with one task a child (`maxtasksperchild=1`), unpicklable work (closures)
 in a thread pool, and everything serially for `num_processes <= 1`. Spawn
 is the only start method: the parent may hold a CUDA context, which a
 forked child must not inherit, and the workers here are host-only (they
-never touch CUDA). `get_multi_device_params` stays with the JAX package
-until the port runs on several cards.
+never touch CUDA). `get_multi_device_params` (`ppsurf_tpu/utils/mp.py:63-74`)
+sizes a data-parallel batch over the process group's ranks, or over the
+local cards where there is no group.
 """
 from __future__ import annotations
 
@@ -60,3 +61,25 @@ def start_thread(func: typing.Callable, args: typing.Sequence = ()) -> threading
     t = threading.Thread(target=func, args=args, daemon=True)
     t.start()
     return t
+
+
+def get_multi_device_params(batch_size_total: int = 50) -> dict:
+    """Per-device batch sizing over the data axis (reference `mp.py:74-94`,
+    which kept the global batch near 50): the world size of the process
+    group, else the number of local cards (at least 1)."""
+    import torch
+
+    from ppsurf_tpu_torch.parallel.mesh import is_distributed
+
+    if is_distributed():
+        import torch.distributed as dist
+
+        n = dist.get_world_size()
+    else:
+        n = max(1, torch.cuda.device_count())
+    per_device = max(1, batch_size_total // n)
+    return {
+        "num_devices": n,
+        "batch_size": per_device * n,
+        "per_device_batch": per_device,
+    }

@@ -65,7 +65,8 @@ MODULES = ("cli.py", "rec.py", "data/datasets.py", "models/poco.py", "convert/in
            "utils/alloc.py", "figures/comp_base.py", "figures/prepare_figures.py",
            "figures/render_figures.py", "figures/fix_imls.py",
            "campaigns/full_run_pps.py", "campaigns/full_run_pps_mini.py",
-           "campaigns/full_run_poco.py", "campaigns/full_run_poco_mini.py")
+           "campaigns/full_run_poco.py", "campaigns/full_run_poco_mini.py",
+           "parallel/mesh.py", "utils/profiling.py", "tools/dryrun_multihost.py")
 
 
 def test_no_file_of_the_port_imports_jax():

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Control for the limits that `chip_smoke.py` holds K3, K4, K5 (bf16) and
-W1 (the metrics' winding number) to.
+"""Control for the limits that `chip_smoke.py` holds K3, K4, K5 (bf16 and
+f32) and W1 (the metrics' winding number) to.
 
-    python3 chip_rounding_control.py
+    python3 chip_rounding_control.py [--only TEXT]
 
 Runs `chip_smoke.py` (with a short reconstruction, without the campaign
 phase) on this checkout and on
 copies of it in which one step of a kernel is removed: a rounding step of
-the bf16 K3-K5 epilogues, or a term, guard or choice of W1's arithmetic. It prints
+the bf16 K3-K5 epilogues, a term or rounding of the f32 K3 and K5's 3xTF32
+products, or a term, guard or choice of W1's arithmetic. It prints
 each run's kernel check lines and exit code. The limits are sound where the
 unchanged run passes and each copy fails the checks of the kernel it
-changes. Needs one CUDA card; the copies live in a temporary directory that
-is removed at the end.
+changes (for the 3xTF32 copies, whose change is in the products both f32
+kernels share, the f32 checks of K3 and of K5 must each fail). `--only`
+runs the mutants whose name holds TEXT. Needs one CUDA card; the copies
+live in a temporary directory that is removed at the end.
 """
 from __future__ import annotations
 
+import argparse
 import os
 import shutil
 import subprocess
@@ -24,8 +28,36 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 SMOKE_ARGS = ["--resolution", "33", "--passes", "1", "--refine", "1", "--no-campaign"]
 
-# name -> (source, text, the text with one rounding step removed)
+F32_CHECKS = ("# K3 decoder_tail f32 ", "# K5 pointnet_head f32 ")
+THREE_TERMS = (
+    "#pragma unroll\n"
+    "  for (int kk = 0; kk < 2; ++kk) {\n"
+    "    wgmma_m64n64k8_tf32_rs(d, ah[kk], desc_sw128(b + TF32_TILE + 32 * kk), accumulate | kk);"
+    "  // hi x lo\n"
+    "    wgmma_m64n64k8_tf32_rs(d, al[kk], desc_sw128(b + 32 * kk), 1);  // lo x hi\n"
+    "  }\n"
+    "#pragma unroll\n"
+    "  for (int kk = 0; kk < 2; ++kk)\n"
+    "    wgmma_m64n64k8_tf32_rs(d, ah[kk], desc_sw128(b + 32 * kk), 1);  // hi x hi\n")
+
+# name -> (source, text, the text with one step removed[, the check lines
+# that must each fail])
 MUTANTS = {
+    "K3/K5 f32 3xTF32: one TF32 term (hi x hi) only": (
+        "ppsurf_tpu_torch/csrc/gmma.cuh", THREE_TERMS,
+        "#pragma unroll\n"
+        "  for (int kk = 0; kk < 2; ++kk)\n"
+        "    wgmma_m64n64k8_tf32_rs(d, ah[kk], desc_sw128(b + 32 * kk), accumulate | kk);"
+        "  // hi x hi\n",
+        F32_CHECKS),
+    "K3/K5 f32 3xTF32: lo x hi dropped": (
+        "ppsurf_tpu_torch/csrc/gmma.cuh",
+        "    wgmma_m64n64k8_tf32_rs(d, al[kk], desc_sw128(b + 32 * kk), 1);  // lo x hi\n",
+        "", F32_CHECKS),
+    "K3/K5 f32 3xTF32: hi by truncation, not cvt.rna": (
+        "ppsurf_tpu_torch/csrc/gmma.cuh",
+        "  hi = tf32_rna(x);\n",
+        "  hi = __float_as_uint(x) & 0xffffe000u;\n", F32_CHECKS),
     "K4/K5 bf16 epilogue: dense output not rounded before its bias": (
         "ppsurf_tpu_torch/csrc/pointnet.cu",
         "float2 y = rnd2(acc0, acc1);",
@@ -85,26 +117,36 @@ NEEDED = ("chip_smoke.py", "ppsurf_tpu_torch", "native", "models_pretrained", "c
 SKIP = shutil.ignore_patterns("_build", "__pycache__")
 
 
-def run_smoke(root: str) -> int:
+def run_smoke(root: str, must_fail=()) -> bool:
+    """Whether the smoke fails on the checkout at `root`, and each check
+    line that starts with one of `must_fail` says FAILED."""
     proc = subprocess.run([sys.executable, "chip_smoke.py", *SMOKE_ARGS], cwd=root,
                           capture_output=True, text=True)
-    for line in proc.stdout.splitlines():
+    lines = proc.stdout.splitlines()
+    for line in lines:
         if line.startswith(("# K3", "# K4", "# K5", "# W1")):
             print(f"  {line}")
     if proc.returncode != 0 and proc.stderr.strip():
         print(f"  {proc.stderr.strip().splitlines()[-1]}")
     print(f"  exit code {proc.returncode}", flush=True)
-    return proc.returncode
+    return proc.returncode != 0 and all(
+        any(line.startswith(check) and line.endswith("FAILED") for line in lines)
+        for check in must_fail)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="", help="run the mutants whose name holds this text")
+    args = ap.parse_args()
     print("== unchanged", flush=True)
-    if run_smoke(HERE) != 0:
+    if run_smoke(HERE):
         print("chip_rounding_control: the unchanged checkout fails", file=sys.stderr)
         return 1
     missed = []
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (name, (source, text, mutated)) in enumerate(MUTANTS.items()):
+        for i, (name, (source, text, mutated, *must_fail)) in enumerate(MUTANTS.items()):
+            if args.only not in name:
+                continue
             copy = os.path.join(tmp, f"m{i}")
             for item in NEEDED:
                 src_path = os.path.join(HERE, item)
@@ -123,7 +165,7 @@ def main() -> int:
             with open(path, "w") as fp:
                 fp.write(src.replace(text, mutated))
             print(f"== {name}", flush=True)
-            if run_smoke(copy) == 0:
+            if not run_smoke(copy, *must_fail):
                 missed.append(name)
     print(f"mutants the limits miss: {missed or 'none'}")
     return 1 if missed else 0

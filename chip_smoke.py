@@ -14,10 +14,11 @@ In order, it:
    unless every K1 instantiation has a 0-byte stack frame, the SASS of
    each bf16 tensor-core kernel (K3 decoder tail at latent 256 and at
    latent 32, K4 PointNet trunk, K5 PointNet head for one tile and, as a
-   thread-block cluster, for two to four) holds HGMMA instructions, and
-   ptxas reports 0 spill bytes for the latent-32 K3, K4 and K5 ones and
-   for every K2 and T1 kernel; prints the SASS instruction count of each
-   T1 variant's pass loop;
+   thread-block cluster, for two to four) and of the f32 3xTF32 K3
+   (latent 256) and K5 holds HGMMA instructions, ptxas reports 0 spill
+   bytes for the latent-32 K3, K4 and K5 ones, the f32 K3 and K5 (with a
+   0-byte stack frame) and every K2 and T1 kernel; prints the SASS
+   instruction count of each T1 variant's pass loop;
 3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
    the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
    PointNet) at the production shapes, and the seven T1 selection
@@ -37,12 +38,19 @@ In order, it:
    boxes cannot cull; the bf16 lines of K3, K4 and K5 are each followed
    by the time of the kernel's products alone as bf16 torch.matmul (a
    yardstick) and by a control: the plain version with those products on
-   the tensor cores; then the builds of the other paths, bf16 and f32
+   the tensor cores; the f32 lines are timed likewise, beside their
+   bound by both figures (the f32 FMA peak, and 3xTF32: three TF32
+   products a product at the TF32 peak) and their products as f32
+   torch.matmul, TF32 off; the f32 K3 and K5 are checked on the committed
+   weights times (1 + 1e-3 seeded noise), whose 3xTF32 lo parts are not
+   zero (the committed weights are f16 values, exact in tf32); then the
+   builds of the other paths, bf16 and f32
    under the same limits: K3 at latent 32 (POCO) at k in {1, 33, 50, 63,
    64}, K3 at latent 256 at k in {1, 33, 40, 50, 63}, K4/K5 at P in {65,
    100, 128, 129, 192, 200, 256} (every cluster size of K5, and last
    tiles of one row), the ones on a path timed beside bound, plain
-   version and yardstick, with the launch shape of the latent-32 K3 and
+   version and yardstick (in f32: K3 at latent 32, K4/K5 at P=100 and
+   200), with the launch shape of the latent-32 K3 and
    the cluster K5 (CTAs a cluster, clusters or blocks the card holds at
    once, the weight bytes a launch streams by design) and, for the
    latent-32 K3, the SFU floor of its softmax beside its bound, on
@@ -61,13 +69,23 @@ In order, it:
    bit-identical except where an iterate's 64-NN set holds an exact
    distance tie (at most 0.1% of them); then times the refinement of
    every vertex on both paths;
+5b. reconstructs the cloud in f32 (as `cli rec --trainer.precision 32`
+   does) through `Predictor.reconstruct_shape` at phase 4's settings,
+   prints its phase seconds, checks that K3, K4 and K5 launch once a
+   field chunk and K1, K2 launch, and that no bf16 build of K3-K5 runs
+   (each launch's dtype code), and prints how far its mesh lies from
+   phase 4's bf16 mesh (vertex counts, the share of vertices within a
+   voxel of the other mesh's: not a limit, the dtypes give different
+   fields);
 6. evaluates one query chunk of the field in f32 on the card and on the
    CPU plain path and compares the two;
-7. the same for `ppsurf_100nn` (patch P=100 from one K1 call at k=100,
-   K4/K5 on two tiles);
+7. the same for `ppsurf_100nn` and `ppsurf_200nn` (patch P=100 and 200
+   from one K1 call at k=P, K4/K5 on two and four tiles), and the
+   100NN chunk in bf16 on the card;
 8. reconstructs the cloud with POCO (latent 32, k=64, bf16) on seeded
    weights with bench.py's analytic blend as `transform`: the mesh must
    be the blend's sphere, and K1, K3 at latent 32 and K2 must launch;
+   then one POCO f32 chunk on the card against the CPU plain path;
 9. reconstructs it with `ppsurf_200nn` (bf16, committed weights; K1 at
    k=200, K4/K5 on four tiles);
 10. reconstructs a 40-point cloud (K3 at k=40, patch P=40) at res 33;
@@ -155,7 +173,7 @@ In order, it:
 20. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
 
-Phases 4, 7-11, each part of 12 and 14, each scoring of 13 and phases
+Phases 4, 5b, 7-11, each part of 12 and 14, each scoring of 13 and phases
 15-19 reset every kernel's launch count just before they run and read it
 just after; each fails if a kernel of its path did not launch.
 
@@ -180,7 +198,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 
 # the field chunk's production shapes: cloud points and queries per chunk
 N_POINTS = 60031
@@ -195,6 +213,11 @@ PATH_KERNELS = ("knn", "knn_k192", "decoder_tail", "pointnet_trunk", "pointnet_h
 # the builds of the other paths (POCO, 100NN/200NN, clouds under 64 points)
 NEW_BUILDS = ("decoder_tail_l32", "decoder_tail_k40", "pointnet_trunk_wide_p100",
               "pointnet_head_wide_p100", "pointnet_trunk_wide_p200", "pointnet_head_wide_p200")
+# the f32 builds (`--trainer.precision 32`): K3 at latent 256 and 32, K4/K5
+# at P=50, 100 and 200
+F32_BUILDS = ("decoder_tail_f32", "decoder_tail_l32_f32", "pointnet_trunk_f32",
+              "pointnet_head_f32", "pointnet_trunk_wide_p100_f32", "pointnet_head_wide_p100_f32",
+              "pointnet_trunk_wide_p200_f32", "pointnet_head_wide_p200_f32")
 
 
 def fail(msg: str) -> typing.NoReturn:
@@ -274,14 +297,24 @@ def ptxas_report(log: str) -> typing.Dict[str, typing.Tuple[int, int]]:
     stored and loaded), from ptxas' -v report."""
     import re
 
+    def short_name(mangled: str) -> str:
+        # _ZN..._knn_cu_afef58a010knn_kernelILi64EEv... -> knn_kernel<64>: the
+        # innermost of the length-prefixed names, its integer template argument
+        i = 3 if mangled.startswith("_ZN") else 2
+        name = mangled
+        while i < len(mangled) and mangled[i].isdigit():
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        t = re.match(r"ILi(\d+)E", mangled[i:])
+        return f"{name}<{t.group(1)}>" if t else name if name.endswith("kernel") else mangled
+
     report, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            # _ZN..._knn_cu_afef58a010knn_kernelILi64EEv... -> knn_kernel<64>
-            t = re.search(r"\d([a-z_]+kernel)(?:ILi(\d+)E)?", m.group(1))
-            name = (m.group(1) if t is None else
-                    f"{t.group(1)}<{t.group(2)}>" if t.group(2) else t.group(1))
+            name = short_name(m.group(1))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -384,6 +417,42 @@ def bound_ms(n_bytes: float, ops: float, kind: str):
     return (max(tb, to), "bytes" if tb >= to else "operations")
 
 
+def full_mantissas(t, gen):
+    """f32 K3 or K5 tables whose tensor-core weights carry full f32
+    mantissas: each times (1 + 1e-3 seeded noise), the packs made again.
+    The committed weights are f16 values, exact in tf32, so their 3xTF32
+    lo tiles are zero and a kernel that misread them would pass."""
+    import dataclasses
+
+    import torch
+
+    from ppsurf_tpu_torch.ops.decoder_tail import DecoderTables, pack_tf32x3_weights
+    from ppsurf_tpu_torch.ops.pointnet_att import pack_head_tf32x3
+
+    def noisy(w):
+        n = torch.randn(w.shape, generator=gen, device=w.device)
+        return (w * (1 + 1e-3 * n)).contiguous()
+
+    if isinstance(t, DecoderTables):
+        t = dataclasses.replace(t, w2=noisy(t.w2), w3=noisy(t.w3), wq=noisy(t.wq), wv=noisy(t.wv))
+        t.wpack = pack_tf32x3_weights(t.w2, t.w3, t.wq, t.wv)
+        return t
+    head_w = tuple(noisy(w) for w in t.head_w)
+    return dataclasses.replace(t, head_w=head_w, head_pack=pack_head_tf32x3(*head_w[:3], head_w[4]))
+
+
+def kernel_bounds(n_bytes: float, ops: float, tag: str) -> dict:
+    """A K3-K5 row's bound. bf16: by the bf16 tensor-core peak. f32: by
+    both figures, its operations at the f32 FMA peak and as 3xTF32 on the
+    tensor cores (three TF32 products for each f32 one at the TF32 peak);
+    the lesser, 3xTF32, is its `bound_ms`."""
+    if tag == "bf16":
+        return dict(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, ops, tag)))
+    fma, _ = bound_ms(n_bytes, ops, "f32")
+    tc, by = bound_ms(n_bytes, 3 * ops, "tf32")
+    return dict(bound_ms=tc, bound_by=by, bound_fma_ms=fma, bound_tf32x3_ms=tc)
+
+
 # multiply-adds a row of K3 at latent L (64 heads), of K4 and of K5 a point
 def tail_macs(lat: int) -> int:
     return 3 * lat + 3 * lat * lat + lat * 64
@@ -477,20 +546,21 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
                 err = compare(f"K3 decoder_tail L={lat_w} k={k} {tag}",
                               [(decoder_tail(lat, pts, q, idk, tabs),
                                 decoder_tail_plain(lat, pts, q, idk, tabs))], tol)
-                name = {(32, 64): "decoder_tail_l32", (256, 40): "decoder_tail_k40"}.get((lat_w, k))
-                if not bf or name is None:
+                name = ({(32, 64): "decoder_tail_l32", (256, 40): "decoder_tail_k40"} if bf
+                        else {(32, 64): "decoder_tail_l32_f32"}).get((lat_w, k))
+                if name is None:
                     continue
-                b_ms, b_by = bound_ms(n * lat_w * esize + n * 12 + c * 12 + c * k * 8
-                                      + c * lat_w * esize, c * k * tail_macs(lat_w) * 2.0, tag)
+                nb = (n * lat_w * esize + n * 12 + c * 12 + c * k * 8 + c * lat_w * esize)
+                ops = c * k * tail_macs(lat_w) * 2.0
                 results[name] = dict(
                     name=name, route="cuda", source="ppsurf_tpu_torch/csrc/decoder_tail.cu",
                     replaces="ppsurf_tpu/ops/decoder_pallas.py:49", max_abs_err=err,
                     ms=cuda_ms(lambda: decoder_tail(lat, pts, q, idk, tabs)),
                     plain_ms=cuda_ms(lambda: decoder_tail_plain(lat, pts, q, idk, tabs), reps=2),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    shape=f"C={c} k={k} L={lat_w} heads=64 {tag}",
+                    **kernel_bounds(nb, ops, tag),
+                    library_ms=None, shape=f"C={c} k={k} L={lat_w} heads=64 {tag}",
                 )
-                if lat_w == 32:
+                if lat_w == 32 and bf:
                     res, shp = results[name], launch_shape("ppsurf_decoder_tail_l32_info", c)
                     b2b = cuda_ms(lambda: decoder_tail(lat, pts, q, idk, tabs), batch=20)
                     print(f"# K3 L=32 bf16 launch: {shp['active']} blocks an SM of "
@@ -504,8 +574,10 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
                           f"exponentials and divisions, {SFU_PER_CLOCK} a clock an SM)",
                           flush=True)
                 xg = lat[idk].reshape(-1, lat_w)
-                yardstick(f"K3 L={lat_w} k={k}", "fc2, fc3, fc_query, fc_value",
-                          [(xg, wt) for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv)])
+                ys = yardstick(f"K3 L={lat_w} k={k} {tag}", "fc2, fc3, fc_query, fc_value",
+                               [(xg, wt) for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv)])
+                if not bf:
+                    results[name]["yardstick_ms"] = ys
                 del xg
             del lat, tabs
         pt = pointnet_tables(nets[dt].point_net)
@@ -517,24 +589,26 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
             x2 = stn_apply(pool_p, b_p, pt).contiguous()
             err5 = compare(f"K5 pointnet_head P={p} {tag}",
                            [(pointnet_head(x2, pt), pointnet_head_plain(x2, pt))], tol)
-            if bf and p in (100, 200):
+            if p in (100, 200):
+                sfx = "" if bf else "_f32"
                 for kernel, err, fn, plain, nb, macs in (
                         ("pointnet_trunk", err4, lambda: pointnet_trunk(pp, pt),
                          lambda: pointnet_trunk_plain(pp, pt),
-                         c * p * 3 * 2 + c * p * 64 * 2 + c * 256 * 2, TRUNK_MACS),
+                         c * p * 3 * esize + c * p * 64 * esize + c * 256 * esize, TRUNK_MACS),
                         ("pointnet_head", err5, lambda: pointnet_head(x2, pt),
-                         lambda: pointnet_head_plain(x2, pt), c * p * 64 * 2 + c * 256 * 2,
-                         HEAD_MACS)):
-                    name = f"{kernel}_wide_p{p}"
-                    b_ms, b_by = bound_ms(nb, c * p * macs * 2.0, tag)
+                         lambda: pointnet_head_plain(x2, pt),
+                         c * p * 64 * esize + c * 256 * esize, HEAD_MACS)):
+                    name = f"{kernel}_wide_p{p}{sfx}"
+                    ops = c * p * macs * 2.0
                     results[name] = dict(
                         name=name, route="cuda", source="ppsurf_tpu_torch/csrc/pointnet.cu",
                         replaces="ppsurf_tpu/ops/pointnet_pallas.py:"
                                  + ("56" if kernel == "pointnet_trunk" else "72"),
                         max_abs_err=err, ms=cuda_ms(fn, reps=5), plain_ms=cuda_ms(plain, reps=2),
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                        shape=f"C={c} P={p} bf16",
+                        **kernel_bounds(nb, ops, tag),
+                        library_ms=None, shape=f"C={c} P={p} {tag}",
                     )
+            if bf and p in (100, 200):
                 shp = launch_shape("ppsurf_pointnet_head_info", c, p)
                 print(f"# K5 P={p} bf16 launch: clusters of {shp['cluster']} CTAs, "
                       f"{shp['active']} clusters at once ({shp['grid_blocks']} blocks); weight "
@@ -542,17 +616,21 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
                       f"a measurement); {results[f'pointnet_head_wide_p{p}']['ms']:.4f} ms a call, "
                       f"{cuda_ms(lambda: pointnet_head(x2, pt), batch=20):.4f} ms over 20 "
                       "back-to-back calls", flush=True)
+            if p in (100, 200):
                 w0a, w0b, ws1, ws2, ws3 = pt.trunk_w
                 x3, x64 = pp.reshape(-1, 3), b_p.reshape(-1, 64)
                 x128 = torch.matmul(x64, ws2)
-                yardstick(f"K4 P={p}", "conv0a, conv0b, stn conv1-3",
-                          [(x3, w0a), (x64, w0b), (x64, ws1), (x64, ws2), (x128, ws3)])
+                ys4 = yardstick(f"K4 P={p} {tag}", "conv0a, conv0b, stn conv1-3",
+                                [(x3, w0a), (x64, w0b), (x64, ws1), (x64, ws2), (x128, ws3)])
                 wc1, wc2, wc3, wq, wv = pt.head_w
                 x64 = x2.reshape(-1, 64)
                 x128 = torch.matmul(x64, wc2)
                 x256 = torch.matmul(x128, wc3)
-                yardstick(f"K5 P={p}", "conv1-3, fc_query, fc_value",
-                          [(x64, wc1), (x64, wc2), (x128, wc3), (x256, wq), (x256, wv)])
+                ys5 = yardstick(f"K5 P={p} {tag}", "conv1-3, fc_query, fc_value",
+                                [(x64, wc1), (x64, wc2), (x128, wc3), (x256, wq), (x256, wv)])
+                if not bf:
+                    results[f"pointnet_trunk_wide_p{p}_f32"]["yardstick_ms"] = ys4
+                    results[f"pointnet_head_wide_p{p}_f32"]["yardstick_ms"] = ys5
                 del x3, x64, x128, x256
             del pp, b_k, pool_k, b_p, pool_p, x2
     del ids256
@@ -1898,20 +1976,24 @@ def main() -> int:
         fail(f"every K1 instantiation must have a 0-byte stack frame: {knn_frames}")
     sass = run([os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump"), "-sass",
                 lib.path])
-    for tag, kernel, no_spill in (("K3", "decoder_tail_wgmma_kernel", False),
-                                  ("K3 latent 32", "decoder_tail_narrow_wgmma_kernel", True),
-                                  ("K4", "trunk_wgmma_kernel", True),
-                                  ("K5", "head_wgmma_kernel", True),
-                                  ("K5 cluster", "head_cluster_kernel", True)):
+    for tag, kernel, no_spill in (("K3 bf16", "decoder_tail_wgmma_kernel", False),
+                                  ("K3 latent 32 bf16", "decoder_tail_narrow_wgmma_kernel", True),
+                                  ("K4 bf16", "trunk_wgmma_kernel", True),
+                                  ("K5 bf16", "head_wgmma_kernel", True),
+                                  ("K5 cluster bf16", "head_cluster_kernel", True),
+                                  ("K3 f32 3xTF32", "decoder_tail_tf32_kernel", True),
+                                  ("K5 f32 3xTF32", "head_tf32_kernel", True)):
         hgmma = sum(part.count("HGMMA") for part in sass.split("Function : ")
                     if kernel in part.split("\n", 1)[0])
         frame, spill = report.get(kernel, (None, None))
-        print(f"# {tag} bf16 {kernel}: {hgmma} HGMMA instructions in its SASS; "
+        print(f"# {tag} {kernel}: {hgmma} HGMMA instructions in its SASS; "
               f"{frame} bytes stack frame, {spill} bytes spilled")
         if not hgmma:
-            fail(f"no HGMMA in the bf16 {kernel}")
+            fail(f"no HGMMA in {kernel}")
         if no_spill and spill != 0:
             fail(f"ptxas reports {spill} spill bytes (or none) for {kernel}")
+        if "f32" in tag and frame != 0:
+            fail(f"ptxas reports a {frame}-byte stack frame (or none) for {kernel}")
     select = {name: r for name, r in report.items()
               if name.startswith(("topk_rows_kernel", "extract_kernel"))}
     print("# K2/T1 spill bytes: " + ", ".join(f"{name} {r[1]}" for name, r in sorted(select.items())))
@@ -2108,15 +2190,19 @@ def main() -> int:
         del slab
 
         # a yardstick only, never called by the port: a kernel's products
-        # alone as bf16 torch.matmul, each on an input of its (rows, K)
+        # alone as torch.matmul in the build's dtype (f32 with TF32 off, as
+        # set above), each on an input of its (rows, K); returns its ms
         def yardstick(tag, what, products):
             def run_all():
                 for x, wt in products:
                     torch.matmul(x, wt)
 
             rows = products[0][0].shape[0]
-            print(f"# {tag} yardstick: {what} as bf16 torch.matmul on ({rows}, K) inputs: "
-                  f"{cuda_ms(run_all, reps=3):.3f} ms", flush=True)
+            dt = str(products[0][0].dtype).replace("torch.", "").replace("bfloat16", "bf16")
+            ms = cuda_ms(run_all, reps=3)
+            print(f"# {tag} yardstick: {what} as {dt} torch.matmul on ({rows}, K) inputs: "
+                  f"{ms:.3f} ms", flush=True)
+            return ms
 
         # a control, not a check: a plain version with its dense products as
         # bf16 torch.matmul (tensor cores, f32 accumulation in the library's
@@ -2148,38 +2234,47 @@ def main() -> int:
         # (max, mean) |kernel - plain| limits over scale. bf16: the sound
         # tensor-core kernels read at most 8.5e-3 and 1.2e-6 (K3; K4 2.2e-8
         # and K5 2.7e-7 mean); kernels with one rounding step removed read
-        # at least 1.4e-5 mean, K4's at least 2.6e-2 max
+        # at least 1.4e-5 mean, K4's at least 2.6e-2 max. f32: the 3xTF32
+        # K3 and K5 read at most 1.5e-6 and 3.3e-7 (K3); with one TF32 term
+        # or lo x hi dropped at least 1.6e-5 mean (K3) and 2.1e-3 max (K5)
         # (chip_rounding_control.py, PERF.md)
         for dt, tag, tol in ((torch.bfloat16, "bf16", (1.6e-2, 2e-6)),
                              (torch.float32, "f32", (1e-4, 2e-6))):
             net = nets[dt]
             lat = torch.randn(n, 256, generator=gen, device=dev).to(dt)
             tabs = decoder_tables(net.projection, dt)
+            if dt == torch.float32:
+                tabs = full_mantissas(tabs, gen)
             out = decoder_tail(lat, pts, q, ids, tabs)
             ref = decoder_tail_plain(lat, pts, q, ids, tabs)
             err = compare(f"K3 decoder_tail {tag}", [(out, ref)], tol)
-            if dt == torch.bfloat16:
-                ops = c * 64 * (3 * 256 + 3 * 256 * 256 + 256 * 64) * 2.0
-                nb = n * 256 * 2 + n * 12 + c * 12 + c * 64 * 8 + c * 256 * 2
-                b_ms, b_by = bound_ms(nb, ops, tag)
-                results["decoder_tail"] = dict(
-                    name="decoder_tail", route="cuda",
-                    source="ppsurf_tpu_torch/csrc/decoder_tail.cu",
-                    replaces="ppsurf_tpu/ops/decoder_pallas.py:49",
-                    max_abs_err=err, ms=cuda_ms(lambda: decoder_tail(lat, pts, q, ids, tabs)),
-                    plain_ms=cuda_ms(lambda: decoder_tail_plain(lat, pts, q, ids, tabs), reps=2),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    shape=f"C={c} k=64 L=256 heads=64 bf16",
-                )
-                xg = lat[ids].reshape(-1, 256)
-                yardstick("K3", "fc2, fc3, fc_query, fc_value",
-                          [(xg, wt) for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv)])
-                del xg
+            bf = dt == torch.bfloat16
+            sfx, esize = ("", 2) if bf else ("_f32", 4)
+            ops = c * 64 * tail_macs(256) * 2.0
+            nb = n * 256 * esize + n * 12 + c * 12 + c * 64 * 8 + c * 256 * esize
+            res = results["decoder_tail" + sfx] = dict(
+                name="decoder_tail" + sfx, route="cuda",
+                source="ppsurf_tpu_torch/csrc/decoder_tail.cu",
+                replaces="ppsurf_tpu/ops/decoder_pallas.py:49",
+                max_abs_err=err, ms=cuda_ms(lambda: decoder_tail(lat, pts, q, ids, tabs)),
+                plain_ms=cuda_ms(lambda: decoder_tail_plain(lat, pts, q, ids, tabs), reps=2),
+                **kernel_bounds(nb, ops, tag), library_ms=None,
+                shape=f"C={c} k=64 L=256 heads=64 {tag}",
+            )
+            xg = lat[ids].reshape(-1, 256)
+            ys = yardstick(f"K3 {tag}", "fc2, fc3, fc_query, fc_value",
+                           [(xg, wt) for wt in (tabs.w2, tabs.w3, tabs.wq, tabs.wv)])
+            del xg
+            if bf:
                 control("K3", tail_mod, lambda: decoder_tail_plain(lat, pts, q, ids, tabs),
                         [ref], tol)
+            else:
+                res["yardstick_ms"] = ys
             del out, ref
 
             pt = pointnet_tables(net.point_net)
+            if dt == torch.float32:
+                pt = full_mantissas(pt, gen)
             pp = patch_space(pts[ids[:, :50]], q).to(dt).contiguous()
             b_k, pool_k = pointnet_trunk(pp, pt)
             b_p, pool_p = pointnet_trunk_plain(pp, pt)
@@ -2188,48 +2283,51 @@ def main() -> int:
             h_k = pointnet_head(x2, pt)
             h_p = pointnet_head_plain(x2, pt)
             err5 = compare(f"K5 pointnet_head {tag}", [(h_k, h_p)], tol)
-            if dt == torch.bfloat16:
-                ops4 = c * 50 * (3 * 64 + 64 * 64 + 64 * 64 + 64 * 128 + 128 * 256) * 2.0
-                b4, by4 = bound_ms(c * 50 * 3 * 2 + c * 50 * 64 * 2 + c * 256 * 2, ops4, tag)
-                results["pointnet_trunk"] = dict(
-                    name="pointnet_trunk", route="cuda",
-                    source="ppsurf_tpu_torch/csrc/pointnet.cu",
-                    replaces="ppsurf_tpu/ops/pointnet_pallas.py:56",
-                    max_abs_err=err4, ms=cuda_ms(lambda: pointnet_trunk(pp, pt), reps=10),
-                    plain_ms=cuda_ms(lambda: pointnet_trunk_plain(pp, pt), reps=2),
-                    bound_ms=b4, bound_by=by4, library_ms=None,
-                    shape=f"C={c} P=50 bf16",
+            for kernel, err_k, fn, plain, nb, macs, line in (
+                    ("pointnet_trunk", err4, lambda: pointnet_trunk(pp, pt),
+                     lambda: pointnet_trunk_plain(pp, pt),
+                     c * 50 * 3 * esize + c * 50 * 64 * esize + c * 256 * esize, TRUNK_MACS, 56),
+                    ("pointnet_head", err5, lambda: pointnet_head(x2, pt),
+                     lambda: pointnet_head_plain(x2, pt), c * 50 * 64 * esize + c * 256 * esize,
+                     HEAD_MACS, 72)):
+                ops = c * 50 * macs * 2.0
+                results[kernel + sfx] = dict(
+                    name=kernel + sfx, route="cuda", source="ppsurf_tpu_torch/csrc/pointnet.cu",
+                    replaces=f"ppsurf_tpu/ops/pointnet_pallas.py:{line}",
+                    max_abs_err=err_k, ms=cuda_ms(fn, reps=10), plain_ms=cuda_ms(plain, reps=2),
+                    **kernel_bounds(nb, c * 50 * macs * 2.0, tag), library_ms=None,
+                    shape=f"C={c} P=50 {tag}",
                 )
-                w0a, w0b, ws1, ws2, ws3 = pt.trunk_w
-                x3, x64 = pp.reshape(-1, 3), b_p.reshape(-1, 64)
-                x128 = torch.matmul(x64, ws2)
-                yardstick("K4", "conv0a, conv0b, stn conv1-3",
-                          [(x3, w0a), (x64, w0b), (x64, ws1), (x64, ws2), (x128, ws3)])
-                del x3, x64, x128
+            w0a, w0b, ws1, ws2, ws3 = pt.trunk_w
+            x3, x64 = pp.reshape(-1, 3), b_p.reshape(-1, 64)
+            x128 = torch.matmul(x64, ws2)
+            ys = yardstick(f"K4 {tag}", "conv0a, conv0b, stn conv1-3",
+                           [(x3, w0a), (x64, w0b), (x64, ws1), (x64, ws2), (x128, ws3)])
+            if not bf:
+                results["pointnet_trunk_f32"]["yardstick_ms"] = ys
+            del x3, x64, x128
+            if bf:
                 control("K4", pn_mod, lambda: pointnet_trunk_plain(pp, pt), [b_p, pool_p], tol)
-                ops5 = c * 50 * (64 * 64 + 64 * 128 + 128 * 256 + 256 + 256 * 256) * 2.0
-                b5, by5 = bound_ms(c * 50 * 64 * 2 + c * 256 * 2, ops5, tag)
-                results["pointnet_head"] = dict(
-                    name="pointnet_head", route="cuda",
-                    source="ppsurf_tpu_torch/csrc/pointnet.cu",
-                    replaces="ppsurf_tpu/ops/pointnet_pallas.py:72",
-                    max_abs_err=err5, ms=cuda_ms(lambda: pointnet_head(x2, pt), reps=10),
-                    plain_ms=cuda_ms(lambda: pointnet_head_plain(x2, pt), reps=2),
-                    bound_ms=b5, bound_by=by5, library_ms=None,
-                    shape=f"C={c} P=50 bf16",
-                )
-                wc1, wc2, wc3, wq, wv = pt.head_w
-                x64 = x2.reshape(-1, 64)
-                x128 = torch.matmul(x64, wc2)
-                x256 = torch.matmul(x128, wc3)
-                yardstick("K5", "conv1-3, fc_query, fc_value",
-                          [(x64, wc1), (x64, wc2), (x128, wc3), (x256, wq), (x256, wv)])
-                del x64, x128, x256
+            wc1, wc2, wc3, wq, wv = pt.head_w
+            x64 = x2.reshape(-1, 64)
+            x128 = torch.matmul(x64, wc2)
+            x256 = torch.matmul(x128, wc3)
+            ys = yardstick(f"K5 {tag}", "conv1-3, fc_query, fc_value",
+                           [(x64, wc1), (x64, wc2), (x128, wc3), (x256, wq), (x256, wv)])
+            if not bf:
+                results["pointnet_head_f32"]["yardstick_ms"] = ys
+            del x64, x128, x256
+            if bf:
                 control("K5", pn_mod, lambda: pointnet_head_plain(x2, pt), [h_p], tol)
             del pp, b_k, pool_k, b_p, pool_p, x2, h_k, h_p
         wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    for res in results.values():
+        print(f"# timed {res['name']} ({res['shape']}): {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
+              + (f", FMA bound {res['bound_fma_ms']:.4f} ms, yardstick "
+                 f"{res['yardstick_ms']:.3f} ms" if "bound_fma_ms" in res else ""), flush=True)
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
 
@@ -2381,6 +2479,67 @@ def main() -> int:
               + ", ".join(f"{t:.3f}" for t in secs["cand"]) + " s", flush=True)
         del runs, iterates, replay
 
+    # ---- 5b. the f32 main path: the 50NN reconstruction in f32, as `cli rec
+    # --trainer.precision 32` runs it ----
+    spec_f32 = ppsurf_spec(dtype=torch.float32, gen_subsample_manifold_iter=args.passes,
+                           gen_refine_iter=args.refine)
+    predictor_f32 = Predictor(spec_f32, variables=variables, device="cuda", verbose=False)
+    field_calls, dtype_codes = [0], {}
+    field_fn, launch_fn = FieldEvaluator._field, kernels.launch
+
+    def count_field(self, *a, **kw):
+        field_calls[0] += 1
+        return field_fn(self, *a, **kw)
+
+    def launch_with_dtype(kernel, symbol, device, *a):
+        # K3-K5's last argument is the dtype code (1 bf16, 0 f32)
+        if symbol in ("ppsurf_decoder_tail", "ppsurf_pointnet_trunk", "ppsurf_pointnet_head"):
+            dtype_codes.setdefault(kernel, set()).add(a[-1])
+        return launch_fn(kernel, symbol, device, *a)
+
+    FieldEvaluator._field, kernels.launch = count_field, launch_with_dtype
+    times_f32 = {}
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        mesh_f32 = predictor_f32.reconstruct_shape(cloud, seed=0, resolution=args.resolution,
+                                                   timings=times_f32)
+        torch.cuda.synchronize()
+        total_f32 = time.perf_counter() - t0
+    finally:
+        FieldEvaluator._field, kernels.launch = field_fn, launch_fn
+    launches_f32 = dict(kernels.LAUNCHES)
+    if mesh_f32 is None or mesh_f32.faces.shape[0] == 0 or not np.isfinite(mesh_f32.vertices).all():
+        fail("the f32 reconstruction produced no finite mesh")
+    print(f"# f32 e2e res {args.resolution}, {N_POINTS} pts, {args.passes} passes, refine "
+          f"{args.refine}: {total_f32:.2f} s; phases "
+          + " ".join(f"{k}={v:.2f}s" for k, v in times_f32.items())
+          + f"; field queries {predictor_f32.last_evaluator.stat_queries} in {field_calls[0]} "
+          f"chunks; launches {json.dumps({k: v for k, v in launches_f32.items() if v})}; K3-K5 "
+          f"dtype codes {json.dumps({k: sorted(v) for k, v in dtype_codes.items()})}",
+          flush=True)
+    from ppsurf_tpu_torch.metrics.proximity import nn_query
+
+    voxel = 1.0 / (args.resolution - 1)
+    d_fb = nn_query(mesh.vertices, mesh_f32.vertices)[0][:, 0]
+    d_bf = nn_query(mesh_f32.vertices, mesh.vertices)[0][:, 0]
+    print(f"# f32 mesh {mesh_f32.vertices.shape[0]} vertices {mesh_f32.faces.shape[0]} faces "
+          f"against the bf16 mesh of phase 4, {mesh.vertices.shape[0]} vertices "
+          f"{mesh.faces.shape[0]} faces: f32 vertices within a voxel ({voxel:.5f}) of a bf16 "
+          f"vertex {float(np.mean(d_fb <= voxel)):.5f}, bf16 vertices within a voxel of an f32 "
+          f"vertex {float(np.mean(d_bf <= voxel)):.5f} (printed, not a limit: the two dtypes "
+          "give different fields)", flush=True)
+    once = ("decoder_tail", "pointnet_trunk", "pointnet_head")
+    if any(launches_f32[k] != field_calls[0] for k in once) or any(
+            launches_f32[k] == 0 for k in ("knn", "knn_k192", "topk_rows")):
+        fail(f"the f32 reconstruction did not launch K3-K5 once a chunk ({field_calls[0]} "
+             f"chunks) and K1/K2: {launches_f32}")
+    if set(dtype_codes) != set(once) or any(v != {0} for v in dtype_codes.values()):
+        fail(f"the f32 reconstruction launched a bf16 build: {dtype_codes}")
+    for name in once:
+        results[name + "_f32"]["launches"] = launches_f32[name]
+    del predictor_f32, mesh_f32, d_fb, d_bf
+
     # ---- 6. one chunk on the card vs the CPU plain path, f32 ----
     with torch.inference_mode():
         spec32 = ppsurf_spec(dtype=torch.float32)
@@ -2398,29 +2557,47 @@ def main() -> int:
         if not (np.isfinite(v_gpu).all() and err <= 1e-3):
             fail(f"f32 field on the card disagrees with the CPU plain path: {err}")
 
-    # ---- 7. ppsurf_100nn: one f32 chunk on the card vs the CPU plain path ----
+    # ---- 7. ppsurf_100nn and ppsurf_200nn: one f32 chunk each on the card
+    # vs the CPU plain path (and the 100NN chunk in bf16 on the card) ----
     with torch.inference_mode():
-        spec100 = ppsurf_spec(num_pts_local=100, dtype=torch.float32)
+        for p_loc in (100, 200):
+            spec_p = ppsurf_spec(num_pts_local=p_loc, dtype=torch.float32)
+            gpu_p = FieldEvaluator(load_network(spec_p, variables, dev), spec_p, cloud, lat32)
+            cpu_p = FieldEvaluator(load_network(spec_p, variables, torch.device("cpu")), spec_p,
+                                   cloud, lat32.cpu())
+            kernels.reset_launches()
+            v_gpu = gpu_p(qc)
+            torch.cuda.synchronize()
+            launches_p = dict(kernels.LAUNCHES)
+            v_cpu = cpu_p(qc)
+            err = float(np.abs(v_gpu - v_cpu).max())
+            print(f"# ppsurf_{p_loc}nn f32 field chunk of {qc.shape[0]} (patch P={p_loc} from "
+                  f"one K1 call at k={p_loc}): card vs CPU plain path max_abs_err {err:.3e}; "
+                  f"launches {json.dumps({k: v for k, v in launches_p.items() if v})}",
+                  flush=True)
+            if not (np.isfinite(v_gpu).all() and err <= 1e-3):
+                fail(f"ppsurf_{p_loc}nn f32 field on the card disagrees with the CPU plain "
+                     f"path: {err}")
+            # K1 at k=P counts under "knn_k192" for P > 128
+            need = ("knn" if p_loc <= 128 else "knn_k192", "decoder_tail",
+                    "pointnet_trunk_wide", "pointnet_head_wide")
+            if any(launches_p[k] == 0 for k in need) or launches_p["pointnet_trunk"]:
+                fail(f"the ppsurf_{p_loc}nn chunk did not run on the wide K4/K5 builds: "
+                     f"{launches_p}")
+            for name in ("pointnet_trunk_wide", "pointnet_head_wide"):
+                results[f"{name}_p{p_loc}_f32"]["launches"] = launches_p[name]
+            del gpu_p, cpu_p
+        spec100 = ppsurf_spec(num_pts_local=100, dtype=torch.bfloat16)
         gpu100 = FieldEvaluator(load_network(spec100, variables, dev), spec100, cloud, lat32)
-        cpu100 = FieldEvaluator(load_network(spec100, variables, torch.device("cpu")), spec100,
-                                cloud, lat32.cpu())
         kernels.reset_launches()
         v_gpu = gpu100(qc)
         torch.cuda.synchronize()
-        launches100 = dict(kernels.LAUNCHES)
-        v_cpu = cpu100(qc)
-        err = float(np.abs(v_gpu - v_cpu).max())
-        print(f"# ppsurf_100nn f32 field chunk of {qc.shape[0]} (patch P=100 from one K1 call "
-              f"at k=100): card vs CPU plain path max_abs_err {err:.3e}; launches "
-              f"{json.dumps({k: v for k, v in launches100.items() if v})}", flush=True)
-        if not (np.isfinite(v_gpu).all() and err <= 1e-3):
-            fail(f"ppsurf_100nn f32 field on the card disagrees with the CPU plain path: {err}")
-        need = ("knn", "decoder_tail", "pointnet_trunk_wide", "pointnet_head_wide")
-        if any(launches100[k] == 0 for k in need) or launches100["pointnet_trunk"]:
-            fail(f"the ppsurf_100nn chunk did not run on the wide K4/K5 builds: {launches100}")
-        for name in ("pointnet_trunk_wide_p100", "pointnet_head_wide_p100"):
-            results[name]["launches"] = launches100[name[:-5]]
-        del gpu100, cpu100
+        if not np.isfinite(v_gpu).all() or not all(
+                kernels.LAUNCHES[k] for k in ("pointnet_trunk_wide", "pointnet_head_wide")):
+            fail(f"the ppsurf_100nn bf16 chunk did not run: {kernels.LAUNCHES}")
+        for name in ("pointnet_trunk_wide", "pointnet_head_wide"):
+            results[f"{name}_p100"]["launches"] = kernels.LAUNCHES[name]
+        del gpu100
 
     # ---- 8. POCO at res 257: seeded weights, bench.py's analytic blend ----
     radius = float(np.abs(cloud).max())
@@ -2462,6 +2639,27 @@ def main() -> int:
             or any(plaunch[k] for k in ("decoder_tail", "pointnet_trunk", "pointnet_head"))):
         fail(f"the POCO reconstruction did not run on its kernels: {plaunch}")
     results["decoder_tail_l32"]["launches"] = plaunch["decoder_tail_l32"]
+    # one POCO f32 chunk on the card vs the CPU plain path (K3 at latent 32, f32)
+    with torch.inference_mode():
+        pspec32 = poco_spec(dtype=torch.float32)
+        plat = poco.encoder(torch.from_numpy(cloud).to(dev),
+                            generator=torch.Generator(device=dev).manual_seed(1)).float()
+        gpu_poco = FieldEvaluator(load_network(pspec32, poco_vars, dev), pspec32, cloud, plat)
+        cpu_poco = FieldEvaluator(load_network(pspec32, poco_vars, torch.device("cpu")),
+                                  pspec32, cloud, plat.cpu())
+        kernels.reset_launches()
+        v_gpu = gpu_poco(qc)
+        torch.cuda.synchronize()
+        plaunch32 = dict(kernels.LAUNCHES)
+        err = float(np.abs(v_gpu - cpu_poco(qc)).max())
+        print(f"# POCO f32 field chunk of {qc.shape[0]}: card vs CPU plain path max_abs_err "
+              f"{err:.3e}; launches {json.dumps({k: v for k, v in plaunch32.items() if v})}",
+              flush=True)
+        if not (np.isfinite(v_gpu).all() and err <= 1e-3) or not plaunch32["decoder_tail_l32"]:
+            fail(f"the POCO f32 chunk on the card disagrees with the CPU plain path or did "
+                 f"not launch K3 at latent 32: {err}, {plaunch32}")
+        results["decoder_tail_l32_f32"]["launches"] = plaunch32["decoder_tail_l32"]
+        del gpu_poco, cpu_poco, plat
     del poco, pmesh
 
     # ---- 9. ppsurf_200nn at res 257: four-tile K4/K5, K1 at k=200 ----
@@ -2599,7 +2797,7 @@ def main() -> int:
 
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in
-                                  PATH_KERNELS + NEW_BUILDS
+                                  PATH_KERNELS + NEW_BUILDS + F32_BUILDS
                                   + tuple(f"extract_{v}" for v in VARIANTS)
                                   + ("winding",)]}))
     print(smi)

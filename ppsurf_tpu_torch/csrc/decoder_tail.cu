@@ -21,10 +21,11 @@
 // version rounds and writes the next product's operand into the other
 // shared-memory buffer of the warpgroup, in the swizzled layout.
 //
-// f32 (`decoder_tail_kernel<float>`): one block of 256 threads a query,
-// every product as f32 FMA on the CUDA cores. It stays there: TF32 tensor
-// cores keep 10 mantissa bits and would miss the f32 limit (1e-4 x scale)
-// that the f32 field is held to.
+// f32 (`tf32::decoder_tail_tf32_kernel`): the bf16 kernel's shape, every
+// product on the tensor cores as 3xTF32 (`wgmma` m64n64k8 on tf32 hi/lo
+// operands, `gmma.cuh`), which keeps f32 accuracy; one TF32 product would
+// miss the f32 limit (1e-4 x scale) that the f32 field is held to. See
+// `namespace tf32` below.
 //
 // latent 32 (POCO): bf16 (`decoder_tail_narrow_wgmma_kernel`) on the tensor cores,
 // one warpgroup a query, every activation in registers; f32
@@ -35,12 +36,7 @@
 
 namespace {
 
-using ppsurf::block_dense;
-using ppsurf::block_matmul;
-using ppsurf::Num;
 using ppsurf::rnd;
-using ppsurf::ROWS;
-using ppsurf::THREADS;
 
 constexpr int K = 64;       // neighbours per query (= ROWS)
 constexpr int LAT = 256;    // latent width
@@ -72,116 +68,6 @@ __device__ __forceinline__ void head_attention(const float* logits, float* hmax,
     att[tid] = tid < kn ? rnd<T>(a / HEADS) : 0.f;
   }
   sync();
-}
-
-template <typename T>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * ROWS * LAT          // activations
-         + sizeof(float) * ROWS * (HEADS + 1)  // head logits (padded)
-         + sizeof(float) * 8 * LAT       // row-group partial sums
-         + sizeof(float) * (ROWS + 2 * HEADS)  // att, head max, head sum
-         + sizeof(float) * ROWS * 3      // rel
-         + sizeof(int) * ROWS;           // neighbour ids
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-decoder_tail_kernel(const T* __restrict__ latents, const float* __restrict__ pts,
-                    const float* __restrict__ queries,
-                    const int64_t* __restrict__ ids, const T* __restrict__ w1,
-                    const T* __restrict__ w2, const float* __restrict__ b2,
-                    const T* __restrict__ w3, const float* __restrict__ b3,
-                    const T* __restrict__ wq, const float* __restrict__ bq,
-                    const T* __restrict__ wv, const float* __restrict__ bv,
-                    T* __restrict__ out, int kn) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* h = reinterpret_cast<T*>(smem);
-  float* logits = reinterpret_cast<float*>(h + ROWS * LAT);
-  float* part = logits + ROWS * (HEADS + 1);
-  float* att = part + 8 * LAT;
-  float* hmax = att + ROWS;
-  float* hsum = hmax + HEADS;
-  float* rel = hsum + HEADS;
-  int* nid = reinterpret_cast<int*>(rel + ROWS * 3);
-
-  const int c = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid < K) {
-    // rows past kn repeat neighbour 0 and get attention weight 0
-    const int j = static_cast<int>(ids[(int64_t)c * kn + (tid < kn ? tid : 0)]);
-    nid[tid] = j;
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-      rel[tid * 3 + d] = rnd<T>(__fsub_rn(queries[3 * c + d], pts[3 * j + d]));
-  }
-  __syncthreads();
-
-  // h = relu(x + rnd(rel @ W1)), x the gathered projected latents
-  {
-    const int r0 = (tid >> 5) * 8;
-    const int c0 = (tid & 31) * 8;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = c0 + jj;
-      const float wa = Num<T>::to_f(w1[col]);
-      const float wb = Num<T>::to_f(w1[LAT + col]);
-      const float wc = Num<T>::to_f(w1[2 * LAT + col]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = r0 + i;
-        const float* rr = rel + r * 3;
-        const float rw = rnd<T>(fmaf(rr[2], wc, fmaf(rr[1], wb, rr[0] * wa)));
-        const float x = Num<T>::to_f(latents[(int64_t)nid[r] * LAT + col]);
-        h[r * LAT + col] = Num<T>::from_f(fmaxf(rnd<T>(x + rw), 0.f));
-      }
-    }
-  }
-  __syncthreads();
-
-  // fc2, fc3 (+relu), in place; the biases are the aff rows
-  block_dense<T, LAT>(h, LAT, LAT, w2, b2, LAT, false, true, h, LAT);
-  block_dense<T, LAT>(h, LAT, LAT, w3, b3, LAT, false, true, h, LAT);
-
-  // fc_query -> head logits (rounded like a dense output)
-  {
-    float acc[8][HEADS / 32];
-    block_matmul<T, HEADS>(h, LAT, LAT, wq, acc);
-    const int r0 = (tid >> 5) * 8;
-    const int c0 = (tid & 31) * (HEADS / 32);
-#pragma unroll
-    for (int j = 0; j < HEADS / 32; ++j)
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        logits[(r0 + i) * (HEADS + 1) + c0 + j] =
-            rnd<T>(rnd<T>(acc[i][j]) + bq[c0 + j]);
-  }
-  __syncthreads();
-
-  head_attention<T>(logits, hmax, hsum, att, tid, kn, [] { __syncthreads(); });
-
-  // fc_value, weighted by att and summed over the neighbours in f32
-  {
-    float acc[8][LAT / 32];
-    block_matmul<T, LAT>(h, LAT, LAT, wv, acc);
-    const int wg = tid >> 5;
-    const int r0 = wg * 8;
-    const int c0 = (tid & 31) * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float b = bv[c0 + j];
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += att[r0 + i] * rnd<T>(rnd<T>(acc[i][j]) + b);
-      part[wg * LAT + c0 + j] = s;
-    }
-  }
-  __syncthreads();
-  {
-    float s = 0.f;
-#pragma unroll
-    for (int g = 0; g < 8; ++g) s += part[g * LAT + tid];
-    out[(int64_t)c * LAT + tid] = Num<T>::from_f(s);
-  }
 }
 
 // ---- bf16 on the tensor cores ----
@@ -409,6 +295,260 @@ decoder_tail_wgmma_kernel(const bf16* __restrict__ latents,
     sync();
   }
 }
+
+// ---- f32 on the tensor cores: 3xTF32 ----
+//
+// Persistent blocks, one per SM, of two warpgroups (two queries at a time,
+// one each); thread 0 also streams the weights through a ring of three
+// 16 KB slices with bulk copies and mbarriers (`gmma.cuh::FedRing`: no
+// producer warp, so 255 registers a thread). The weights are split into
+// tf32 hi and lo once per table (`ops/decoder_tail.py::pack_tf32x3_weights`,
+// 1.66 MB): a slice is the hi and the lo tile of 64 output columns x 32
+// inputs, in the order the products take them (a layer's column quarters
+// in order, each over its K-chunks). A query's f32 activations (64 x 256,
+// 64 KB) stay in shared memory; each product runs a column quarter at a
+// time (`gmma.cuh::mma_quarter_tf32x3`): per K-chunk of 32 inputs, two
+// k8 steps at a time, its A fragments are loaded from there and split into
+// hi and lo in registers, and 6 `wgmma` m64n64k8 tf32 products (hi x lo,
+// lo x hi, hi x hi of two steps) accumulate into a fresh partial of the
+// chunk, added to the quarter's total in f32. fc2 and fc3 overwrite their
+// input in place: quarter 0 waits in the logits' space and quarters 1-3 in
+// registers until quarter 3 has read the input; quarter 3, computed beside
+// two held quarters, accumulates all of K on the tensor cores (no partials:
+// its registers would spill). Each slice
+// serves the block's two queries: 832 KB of L2 reads a query, about 42 GB
+// a 50 048-query call.
+namespace tf32 {
+
+constexpr int STAGES = 3;
+constexpr int SLICE = gm::TF32_SLICE;
+// W2, W3, Wv: 8 K-chunks x 4 column quarters each; Wq: 8 K-chunks
+constexpr int SLICES = 3 * 32 + 8;
+constexpr int CONSUMERS = 2;
+constexpr int THREADS_TF = CONSUMERS * WG_THREADS;  // thread 0 also feeds the ring
+// a consumer's floats: activations, logits (before them fc2 / fc3's staged
+// quarter, after them per-warp column sums), rel, ids, att, head max, head
+// sum
+constexpr int ACT = K * LAT;
+constexpr int LOGITS = K * (HEADS + 1);
+constexpr int WG_FLOATS = ACT + LOGITS + 3 * K + K + K + 2 * HEADS;
+// the block's copy of W1's rel rows and the biases b2, b3, bv, bq: read from
+// shared memory, they are not hoisted out of the query loop into registers
+constexpr int C_W1 = 0, C_B2 = 3 * LAT, C_B3 = C_B2 + LAT, C_BV = C_B3 + LAT, C_BQ = C_BV + LAT,
+              CONSTS = C_BQ + HEADS;
+constexpr size_t SMEM = 1024 + STAGES * SLICE + (CONSUMERS * WG_FLOATS + CONSTS) * sizeof(float) +
+                        2 * STAGES * sizeof(uint64_t);
+static_assert(4 * LAT <= LOGITS && 32 * WG_THREADS <= LOGITS,
+              "the per-warp column sums and the staged quarter alias the logits");
+
+using RingTF = gm::FedRing<STAGES, SLICE>;
+
+__global__ void __launch_bounds__(THREADS_TF, 1)
+decoder_tail_tf32_kernel(const float* __restrict__ latents, const float* __restrict__ pts,
+                         const float* __restrict__ queries, const int64_t* __restrict__ ids,
+                         const float* __restrict__ w1, const float* __restrict__ b2,
+                         const float* __restrict__ b3, const float* __restrict__ bq,
+                         const float* __restrict__ bv, const unsigned char* __restrict__ wpack,
+                         float* __restrict__ out, int c, int kn) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* slots = gm::align1024(smem_raw);
+  float* floats = reinterpret_cast<float*>(slots + STAGES * SLICE);
+  float* consts = floats + CONSUMERS * WG_FLOATS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(consts + CONSTS);
+  for (int i = threadIdx.x; i < CONSTS; i += THREADS_TF)
+    consts[i] = i < C_B2 ? w1[i] : i < C_B3 ? b2[i - C_B2] : i < C_BV ? b3[i - C_B3]
+              : i < C_BQ ? bv[i - C_BV] : bq[i - C_BQ];
+  const int pairs = (c + CONSUMERS - 1) / CONSUMERS;
+  RingTF ring;
+  ring.slots = slots;
+  ring.full = bars;
+  ring.empty = bars + STAGES;
+  // thread 0 feeds the same slices for every pair of queries of the block
+  ring.src = wpack;
+  ring.per_round = SLICES;
+  ring.total = static_cast<int>(blockIdx.x) < pairs
+                   ? (pairs - blockIdx.x + gridDim.x - 1) / gridDim.x * SLICES : 0;
+  ring.producer = threadIdx.x == 0;
+  if (threadIdx.x == 0) ring.init(CONSUMERS * WG_THREADS);
+  __syncthreads();
+  ring.start();
+  const int wg = threadIdx.x / WG_THREADS;
+
+  // consumer warpgroup `wg`: thread t, warp w, lane l
+  const int t = threadIdx.x % WG_THREADS;
+  const int w = t >> 5;
+  const int l = t & 31;
+  float* act = floats + wg * WG_FLOATS;
+  float* logits = act + ACT;
+  float* part = logits;  // per-warp column sums, once the logits are read
+  float* rel = logits + LOGITS;
+  int* nid = reinterpret_cast<int*>(rel + 3 * K);
+  float* att = reinterpret_cast<float*>(nid + K);
+  float* hmax = att + K;
+  float* hsum = hmax + HEADS;
+  auto sync = [wg] { gm::named_barrier(1 + wg, WG_THREADS); };
+  const int r0 = 16 * w + (l >> 2);  // fragment rows r0 and r0 + 8
+  const int cl = 2 * (l & 3);        // fragment column offset in an n8 block
+
+  float* stage = logits;  // the first column quarter of fc2 / fc3, before its store
+  // relu(total + bias) of column quarter q into act
+  auto store_relu = [&](const float (&total)[32], int q, const float* __restrict__ bias) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * q + 8 * j + cl;
+      const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(act + gm::act_offset(r0 + 8 * h, col)) =
+            make_float2(fmaxf(total[4 * j + 2 * h] + b.x, 0.f),
+                        fmaxf(total[4 * j + 2 * h + 1] + b.y, 0.f));
+    }
+  };
+
+#pragma unroll 1
+  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    // the second query of an odd last pair repeats the last one, unstored
+    const int cq = min(CONSUMERS * pair + wg, c - 1);
+    const bool store = CONSUMERS * pair + wg < c;
+
+    // h = relu(x + rel @ W1), x the gathered projected latents; rows past
+    // kn repeat neighbour 0
+    if (t < K) {
+      const int j = static_cast<int>(ids[static_cast<int64_t>(cq) * kn + (t < kn ? t : 0)]);
+      nid[t] = j;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) rel[t * 3 + d] = __fsub_rn(queries[3 * cq + d], pts[3 * j + d]);
+    }
+    sync();
+    {
+      const int u = t & 31;  // this thread's 32-byte unit (8 columns), every 4th row
+      float wa[8], wb[8], wc[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        wa[e] = consts[C_W1 + 8 * u + e];
+        wb[e] = consts[C_W1 + LAT + 8 * u + e];
+        wc[e] = consts[C_W1 + 2 * LAT + 8 * u + e];
+      }
+#pragma unroll 2
+      for (int r = t >> 5; r < K; r += 4) {
+        const float4* src =
+            reinterpret_cast<const float4*>(latents + static_cast<int64_t>(nid[r]) * LAT + 8 * u);
+        const float4 x0 = src[0], x1 = src[1];
+        const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float* rr = rel + r * 3;
+        float h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          h[e] = fmaxf(x[e] + fmaf(rr[2], wc[e], fmaf(rr[1], wb[e], rr[0] * wa[e])), 0.f);
+        float4* dst = reinterpret_cast<float4*>(act + gm::act_offset(r, 8 * u));
+        dst[0] = make_float4(h[0], h[1], h[2], h[3]);
+        dst[1] = make_float4(h[4], h[5], h[6], h[7]);
+      }
+    }
+    sync();
+
+    // fc2, fc3 (+relu), in place: every column quarter reads all of act,
+    // so quarter 0 waits in `stage` (thread t's value i at i * 128 + t)
+    // and quarters 1-3 in registers until the last has read it
+#pragma unroll 1
+    for (int layer = 0; layer < 2; ++layer) {
+      const float* bias = consts + (layer ? C_B3 : C_B2);
+      {
+        float t0[32];
+        gm::mma_quarter_tf32x3<8>(t0, act, ring, r0, cl);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) stage[i * WG_THREADS + t] = t0[i];
+      }
+      float t1[32], t2[32], t3[32];
+      gm::mma_quarter_tf32x3<8>(t1, act, ring, r0, cl);
+      gm::mma_quarter_tf32x3<8>(t2, act, ring, r0, cl);
+      // with two quarters held, no room for this one's partials
+      gm::mma_quarter_tf32x3<8, false>(t3, act, ring, r0, cl);
+      sync();  // every read of act is done
+      store_relu(t1, 1, bias);
+      store_relu(t2, 2, bias);
+      store_relu(t3, 3, bias);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) t1[i] = stage[i * WG_THREADS + t];
+      store_relu(t1, 0, bias);
+      sync();
+    }
+
+    // fc_query -> head logits
+    {
+      float total[32];
+      gm::mma_quarter_tf32x3<8>(total, act, ring, r0, cl);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + cl;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          logits[(r0 + 8 * (e >> 1)) * (HEADS + 1) + col + (e & 1)] =
+              total[4 * j + e] + consts[C_BQ + col + (e & 1)];
+      }
+    }
+    sync();
+    head_attention<float>(logits, hmax, hsum, att, t, kn, sync);
+
+    // fc_value (+bias), a column quarter at a time, weighted by att and
+    // summed over the neighbours in f32: rows r0, r0 + 8, the 8 lanes of a
+    // column, then the 4 warps
+    {
+      const float a0 = att[r0], a1 = att[r0 + 8];
+#pragma unroll 1
+      for (int q = 0; q < 4; ++q) {
+        float total[32];
+        gm::mma_quarter_tf32x3<8>(total, act, ring, r0, cl);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * q + 8 * j + cl;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float b = consts[C_BV + col + e];
+            float s = a0 * (total[4 * j + e] + b) + a1 * (total[4 * j + 2 + e] + b);
+            s += __shfl_xor_sync(0xffffffffu, s, 4);
+            s += __shfl_xor_sync(0xffffffffu, s, 8);
+            s += __shfl_xor_sync(0xffffffffu, s, 16);
+            if (l < 4) part[w * LAT + col + e] = s;
+          }
+        }
+      }
+    }
+    sync();
+    if (store) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = t + WG_THREADS * h;
+        out[static_cast<int64_t>(cq) * LAT + col] =
+            part[col] + part[LAT + col] + part[2 * LAT + col] + part[3 * LAT + col];
+      }
+    }
+    sync();
+  }
+}
+
+cudaError_t launch(const void* latents, const void* pts, const void* queries, const void* ids,
+                   const void* w1, const void* b2, const void* b3, const void* bq,
+                   const void* bv, const void* wpack, void* out, int c, int kn,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(decoder_tail_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(SMEM));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return err;
+  const int pairs = (c + CONSUMERS - 1) / CONSUMERS;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  decoder_tail_tf32_kernel<<<min(pairs, sms), THREADS_TF, SMEM, stream>>>(
+      f(latents), f(pts), f(queries), static_cast<const int64_t*>(ids), f(w1), f(b2), f(b3),
+      f(bq), f(bv), static_cast<const unsigned char*>(wpack), static_cast<float*>(out), c, kn);
+  return cudaGetLastError();
+}
+
+}  // namespace tf32
 
 // ---- L = 32 (POCO), f32: one thread a neighbour row on the CUDA cores ----
 //
@@ -990,24 +1130,6 @@ cudaError_t launch(const void* latents, const void* pts, const void* queries, co
 
 }  // namespace narrow_tc
 
-cudaError_t launch_f32(const void* latents, const void* pts, const void* queries,
-                       const void* ids, const void* w1, const void* w2,
-                       const void* b2, const void* w3, const void* b3,
-                       const void* wq, const void* bq, const void* wv,
-                       const void* bv, void* out, int c, int kn, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<float>();
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_tail_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  decoder_tail_kernel<float><<<c, THREADS, bytes, stream>>>(
-      f(latents), f(pts), f(queries), static_cast<const int64_t*>(ids), f(w1),
-      f(w2), f(b2), f(w3), f(b3), f(wq), f(bq), f(wv), f(bv),
-      static_cast<float*>(out), kn);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_bf16(const void* latents, const void* pts, const void* queries,
                         const void* ids, const void* w1, const void* b2,
                         const void* b3, const void* bq, const void* bv,
@@ -1033,7 +1155,8 @@ cudaError_t launch_bf16(const void* latents, const void* pts, const void* querie
 }  // namespace
 
 // latent 256 (PPSurf) or 32 (POCO), 64 heads, 1 <= k <= 64 neighbours a
-// query; a bf16 call needs the weight pack of its latent
+// query; a bf16 call needs the weight pack of its latent, an f32 call at
+// latent 256 its hi/lo pack
 extern "C" int ppsurf_decoder_tail(const void* latents, const void* pts,
                                    const void* queries, const void* ids,
                                    const void* w1, const void* w2,
@@ -1044,7 +1167,7 @@ extern "C" int ppsurf_decoder_tail(const void* latents, const void* pts,
                                    int c, int k, int latent, int heads,
                                    int is_bf16, void* stream) {
   if (k < 1 || k > K || (latent != LAT && latent != narrow::LAT) || heads != HEADS || c < 0 ||
-      (is_bf16 && !wpack))
+      ((is_bf16 || latent == LAT) && !wpack))
     return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
@@ -1056,8 +1179,7 @@ extern "C" int ppsurf_decoder_tail(const void* latents, const void* pts,
   }
   if (is_bf16)
     return launch_bf16(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, k, s);
-  return launch_f32(latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv, bv,
-                    out, c, k, s);
+  return tf32::launch(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, k, s);
 }
 
 // the bf16 latent-32 build's launch for c queries: out[0] 1 (no cluster),

@@ -6,7 +6,9 @@
 //
 // Since the latent-32 K3 and the cluster K5: products with A in registers
 // (the RS form), and the cluster primitives (rank, barrier, distributed
-// shared memory, remote mbarrier arrivals, multicast bulk copies).
+// shared memory, remote mbarrier arrivals, multicast bulk copies). Since
+// the f32 K3 and K5: f32 products as 3xTF32 (`wgmma` on tf32 operands,
+// A in registers, below).
 //
 // Shared-memory operand layout (the one `wgmma` reads with 128-byte
 // swizzling, K-major): a (rows x 64) bf16 tile stores row r's 128 bytes at
@@ -285,6 +287,43 @@ struct Ring {
   }
 };
 
+// A ring fed by one of its consumer threads (`producer`): that thread fills
+// the first STAGES slots at `start` and, after each of its releases, waits
+// until every consumer has released the slot and refills it with the slice
+// STAGES further on; the slices at `src` repeat every `per_round`, `total`
+// in all. No warp of the block is a producer only, so a block of two
+// warpgroups keeps 256 threads' share of the register file (255 a thread),
+// where one producer warp more leaves it 168: a block of `wgmma`
+// warpgroups is counted in whole warpgroups.
+template <int STAGES, int SLICE>
+struct FedRing : Ring<STAGES, SLICE> {
+  const unsigned char* src = nullptr;
+  int per_round = 0, total = 0, next = 0, pstage = 0;
+  uint32_t pphase = 0;
+  bool producer = false;
+
+  __device__ __forceinline__ void feed() {
+    mbar_wait(&this->empty[pstage], pphase ^ 1);
+    mbar_arrive_expect_tx(&this->full[pstage], SLICE);
+    bulk_copy_g2s(this->slots + pstage * SLICE, src + (next % per_round) * SLICE, SLICE,
+                  &this->full[pstage]);
+    if (++pstage == STAGES) {
+      pstage = 0;
+      pphase ^= 1;
+    }
+    ++next;
+  }
+  // once the barriers exist
+  __device__ __forceinline__ void start() {
+    if (producer)
+      while (next < total && next < STAGES) feed();
+  }
+  __device__ __forceinline__ void release() {
+    Ring<STAGES, SLICE>::release();
+    if (producer && next < total) feed();
+  }
+};
+
 // ---- A from registers (the RS form) ----
 //
 // Register fragment of a (64 x 16) bf16 A operand, thread t of the
@@ -345,6 +384,167 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
       "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// ---- f32 products on the tensor cores as 3xTF32 ----
+//
+// An f32 operand x is split as hi = tf32(x), rounded to nearest with ties
+// away from zero (`cvt.rna.tf32.f32`), and lo = tf32(x - hi) (x - hi is
+// exact in f32). The tensor cores ignore the low 13 bits of a tf32
+// operand, so both are rounded explicitly and those bits cleared. A
+// product x w is then hi_x hi_w + hi_x lo_w + lo_x hi_w, each term exact
+// on the tensor cores; lo_x lo_w and the roundings of lo, left out, are
+// about 2^-22 of |x w|, the order of an f32 rounding (one TF32 product
+// misses by about 2^-11). The weights are split once per table on the
+// host (`ops/wgmma_layout.py::tf32_split`, the same rounding), the
+// activations in registers from their f32 copy in shared memory.
+//
+// Register fragment of a (64 x 8) tf32 A operand, thread t of the
+// warpgroup, warp w, lane l: a[i] holds row 16w + l/4 + 8 (i % 2),
+// logical column (l % 4) + 4 (i / 2). The kernels load a[0], a[2] (a[1],
+// a[3]) as one float2, inputs 2 (l % 4) and 2 (l % 4) + 1 of an 8-input
+// group, so every weight tile holds the inputs of each group of 8 in the
+// order 0, 2, 4, 6, 1, 3, 5, 7 (`ops/wgmma_layout.py::TF32_K_ORDER`). The
+// same float2 is what an accumulator fragment holds (columns 8j + 2 (l %
+// 4), + 1 of rows r0, r0 + 8), so epilogues store it as it is.
+//
+// Weight tiles: (64 x 32) f32, K-major, one 128-byte row an output column
+// with the 128-byte swizzle of the bf16 tiles (16-byte unit u of row r at
+// u ^ (r % 8)), 8 KB; a ring slice is a tile's hi image, then its lo
+// image. A k8 step is 32 bytes of the row, so `desc_sw128(tile + 32 kk)`
+// addresses step kk as it addresses a bf16 k16 step.
+//
+// Activations: (64 x 256) f32 row-major in shared memory, the 32-byte
+// unit u of row r stored at unit u ^ (r % 8), so the fragment loads and
+// stores (8 rows x 4 float2 a warp) take two wavefronts.
+
+constexpr int TF32_TILE = 8192;              // one (64 x 32) f32 weight tile
+constexpr int TF32_SLICE = 2 * TF32_TILE;    // its hi and lo images
+
+__device__ __forceinline__ int act_offset(int r, int c) {
+  return r * 256 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// x -> (hi, lo) tf32 bit patterns, hi + lo = x within 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// the hi and lo A fragments of k8 step g (inputs 8g..8g+7) of the f32
+// activation at `act`; r0, cl: the thread's fragment row and column offset
+__device__ __forceinline__ void load_a_tf32(const float* act, int g, int r0, int cl,
+                                            uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(act + act_offset(r0, 8 * g + cl));
+  const float2 x1 = *reinterpret_cast<const float2*>(act + act_offset(r0 + 8, 8 * g + cl));
+  split_tf32(x0.x, hi[0], lo[0]);
+  split_tf32(x1.x, hi[1], lo[1]);
+  split_tf32(x0.y, hi[2], lo[2]);
+  split_tf32(x1.y, hi[3], lo[3]);
+}
+
+// D (64 x 64, f32) (+)= A (64 x 8 tf32, registers) B (8 x 64 tf32, K-major
+// in shared memory); `accumulate` 0 overwrites.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t* a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,"
+      "%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64) (+)= A (64 x 16) W (16 x 64) as 3xTF32 over two k8 steps:
+// ah / al the steps' A fragments, the weights' hi tile at shared address b
+// (the steps' first 32 bytes of each 128-byte row) and the lo tile
+// TF32_TILE after it; `accumulate` 0 overwrites d. The correction terms
+// run first, the hi x hi terms last. Waits for the result, so the
+// fragments' registers are free again.
+__device__ __forceinline__ void mma_steps_tf32x3(float (&d)[32], uint32_t (&ah)[2][4],
+                                                 uint32_t (&al)[2][4], uint32_t b,
+                                                 int accumulate) {
+  fence_operand(d);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    fence_operand(ah[kk]);
+    fence_operand(al[kk]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    wgmma_m64n64k8_tf32_rs(d, ah[kk], desc_sw128(b + TF32_TILE + 32 * kk), accumulate | kk);  // hi x lo
+    wgmma_m64n64k8_tf32_rs(d, al[kk], desc_sw128(b + 32 * kk), 1);  // lo x hi
+  }
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_m64n64k8_tf32_rs(d, ah[kk], desc_sw128(b + 32 * kk), 1);  // hi x hi
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(d);
+}
+
+// total (64 x 64: one column quarter of a layer) = act (64 x 32 CHUNKS) @
+// W[:, quarter] as 3xTF32: its K-chunks of 32 inputs in order, each on the
+// next slice of the ring, two k8 steps at a time, the steps' A fragments
+// loaded from the f32 activation and split in registers. With PARTIALS
+// each chunk is a fresh partial added to the total in f32 on the CUDA
+// cores (round to nearest); without, the tensor cores accumulate all of K,
+// which saves the partial's 32 registers: K3 with every product so read
+// about 10x as far from the plain version (the tensor cores cut each sum
+// at the accumulator's exponent; PERF.md). Only the quarter's accumulators, the partial and two
+// steps' fragments are live, so a layer holds at most the quarters it
+// cannot yet write.
+template <int CHUNKS, bool PARTIALS = true, typename RingT>
+__device__ __forceinline__ void mma_quarter_tf32x3(float (&total)[32], const float* act,
+                                                   RingT& ring, int r0, int cl) {
+  auto steps = [&](float (&d)[32], int kc, uint32_t b, int accumulate) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        load_a_tf32(act, 4 * kc + 2 * h + kk, r0, cl, ah[kk], al[kk]);
+      mma_steps_tf32x3(d, ah, al, b + 64 * h, accumulate | h);
+    }
+  };
+  // defined before the loop: an accumulator first read by `wgmma` (or a
+  // select) would be live, undefined, from the kernel's entry on
+#pragma unroll
+  for (int i = 0; i < 32; ++i) total[i] = 0.f;
+#pragma unroll 1
+  for (int kc = 0; kc < CHUNKS; ++kc) {
+    const uint32_t b = ring.wait();
+    if constexpr (PARTIALS) {
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.f;
+      steps(part, kc, b, 0);
+      ring.release();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) total[i] += part[i];
+    } else {
+      steps(total, kc, b, kc > 0);
+      ring.release();
+    }
+  }
 }
 
 // ---- thread-block clusters ----

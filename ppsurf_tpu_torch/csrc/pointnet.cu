@@ -66,11 +66,6 @@ constexpr size_t trunk_smem() {
 
 constexpr int PMAX = 4 * ROWS;  // the most points a patch the kernels take
 
-template <typename T>
-constexpr size_t head_smem() {
-  return sizeof(T) * ROWS * W + sizeof(float) * (2 * PMAX + 8 * W);
-}
-
 // load rows [0, p) of a (p, width) patch, repeating row 0 into [p, 64)
 template <typename T>
 __device__ __forceinline__ void load_rows(const T* __restrict__ src, int p,
@@ -112,112 +107,6 @@ trunk_kernel(const T* __restrict__ patches, const T* __restrict__ w0a,
     __syncthreads();  // the next tile overwrites x
   }
   pooled[c * W + threadIdx.x] = Num<T>::from_f(m);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-head_kernel(const T* __restrict__ x2, const T* __restrict__ wc1,
-            const T* __restrict__ wc2, const T* __restrict__ wc3,
-            const T* __restrict__ wq, const T* __restrict__ wv,
-            const float* __restrict__ aff, const float* __restrict__ bqv,
-            T* __restrict__ out, int p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* x = reinterpret_cast<T*>(smem);
-  float* logit = reinterpret_cast<float*>(x + ROWS * W);
-  float* att = logit + PMAX;
-  float* part = att + PMAX;
-  const int64_t c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tiles = (p + ROWS - 1) / ROWS;
-
-  // conv1 64 / conv2 128 (+BN+relu), conv3 256 (+BN) of tile `tile` into x
-  auto convs = [&](int tile) {
-    const int r0 = tile * ROWS;
-    load_rows<T>(x2 + (c * p + r0) * 64, min(ROWS, p - r0), 64, x);
-    block_dense<T, 64>(x, W, 64, wc1, aff + 0 * W, W, true, true, x, W);
-    block_dense<T, 128>(x, W, 64, wc2, aff + 3 * W, W, true, true, x, W);
-    block_dense<T, 256>(x, W, 128, wc3, aff + 6 * W, W, true, false, x, W);
-  };
-
-  // fc_query of every tile: one scalar logit per point; warp w owns rows
-  // 8w..8w+7 of a tile
-  for (int tile = 0; tile < tiles; ++tile) {
-    if (tile) __syncthreads();  // the previous tile's x is read
-    convs(tile);
-    const int lane = tid & 31;
-    const int r0 = (tid >> 5) * 8;
-    for (int i = 0; i < 8; ++i) {
-      const T* row = x + (r0 + i) * W;
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        s = fmaf(Num<T>::to_f(row[lane * 8 + j]), Num<T>::to_f(wq[lane * 8 + j]), s);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) logit[tile * ROWS + r0 + i] = rnd<T>(rnd<T>(s) + bqv[0]);
-    }
-  }
-  __syncthreads();
-
-  // softmax over the p real points (warp 0, lane l holds points l + 32i):
-  // every step rounds to T, the sum accumulates in f32
-  if (tid < 32) {
-    const float ninf = -__int_as_float(0x7f800000);
-    float m = ninf;
-#pragma unroll
-    for (int i = 0; i < PMAX / 32; ++i) {
-      const int r = tid + 32 * i;
-      m = fmaxf(m, r < p ? logit[r] : ninf);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float e[PMAX / 32];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < PMAX / 32; ++i) {
-      const int r = tid + 32 * i;
-      e[i] = r < p ? rnd<T>(expf(rnd<T>(logit[r] - m))) : 0.f;
-      s += e[i];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    s = rnd<T>(s);
-#pragma unroll
-    for (int i = 0; i < PMAX / 32; ++i) att[tid + 32 * i] = rnd<T>(e[i] / s);
-  }
-  __syncthreads();
-
-  // fc_value, weighted by att and summed over the points in f32, the last
-  // tile first (its conv3 output is still in x)
-  const int wg = tid >> 5;
-  const int r0 = wg * 8;
-  const int c0 = (tid & 31) * 8;
-  float tot[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int tile = tiles - 1; tile >= 0; --tile) {
-    if (tile != tiles - 1) {
-      __syncthreads();  // the previous tile's x is read
-      convs(tile);
-    }
-    float acc[8][W / 32];
-    block_matmul<T, W>(x, W, W, wv, acc);
-    const float* a = att + tile * ROWS + r0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float b = bqv[W + c0 + j];
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += a[i] * rnd<T>(rnd<T>(acc[i][j]) + b);
-      tot[j] += s;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) part[wg * W + c0 + j] = tot[j];
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int g = 0; g < 8; ++g) s += part[g * W + tid];
-  out[c * W + tid] = Num<T>::from_f(s);
 }
 
 // ---- bf16 on the tensor cores ----
@@ -995,25 +884,6 @@ cudaError_t launch_trunk(const void* patches, const void* w0a, const void* w0b,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_head(const void* x2, const void* wc1, const void* wc2,
-                        const void* wc3, const void* wq, const void* wv,
-                        const void* aff, const void* bqv, void* out, int c,
-                        int p, cudaStream_t stream) {
-  constexpr size_t bytes = head_smem<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  head_kernel<T><<<c, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x2), static_cast<const T*>(wc1),
-      static_cast<const T*>(wc2), static_cast<const T*>(wc3),
-      static_cast<const T*>(wq), static_cast<const T*>(wv),
-      static_cast<const float*>(aff), static_cast<const float*>(bqv),
-      static_cast<T*>(out), p);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_trunk_bf16(const void* patches, const void* w0a, const void* aff,
                               const void* pack, void* b_out, void* pooled, int c, int p,
                               cudaStream_t stream) {
@@ -1113,6 +983,336 @@ cudaError_t launch_head_bf16(const void* x2, const void* wq, const void* aff,
   return cudaGetLastError();
 }
 
+// ---- K5 in f32 on the tensor cores: 3xTF32, a patch's tiles on a cluster ----
+//
+// Every P in 1..256: a patch's T = ceil(P / 64) tiles run on the T CTAs of
+// a thread-block cluster (T = 1 a cluster of one), CTA t on tile t of both
+// patches of a round (one a consumer warpgroup), as `head_cluster_kernel`
+// does, so no tile's conv1-conv3 runs twice. Each CTA's thread 0 streams
+// its own copy of the weights (`gmma.cuh::FedRing`: no producer warp, so
+// 255 registers a thread), split into tf32 hi and lo once per table
+// (`ops/pointnet_att.py::pack_head_tf32x3`, 864 KB: 54 slices of the hi and
+// lo tiles of 64 output columns x 32 inputs), through a ring of four
+// slices with bulk copies and mbarriers: a slice serves the CTA's two
+// tiles, 432 KB of L2 reads a tile. Each product is 3xTF32 (`gmma.cuh`:
+// A fragments from the f32 activation in shared memory, split in
+// registers; `wgmma` m64n64k8 on tf32; a fresh partial a K-chunk of 32
+// inputs, added in f32), a column quarter at a time. A warpgroup's one
+// 64 KB activation buffer holds
+// x2, then each layer's output in place: quarters beyond the layer's input
+// width are written at once, the others held in registers to the layer's
+// last product (at most two: conv3's quarters 0 and 1). conv3's epilogue takes
+// fc_query's dot product and stores the tile's logits into every CTA's
+// shared memory; after a cluster barrier each CTA takes the softmax over
+// the P real rows in one fixed order, weights its own rows' fc_value and
+// sends its column sums to the leader, which adds them in tile order. One
+// cluster barrier a round, the arrays it hands over double buffered by
+// round.
+namespace tf32 {
+
+constexpr int STAGES = 4;
+constexpr int SLICE = gm::TF32_SLICE;
+// conv1 (1 column quarter x 2 K-chunks), conv2 (2 x 2: quarter 1 first),
+// conv3 (4 x 4: quarters 2, 3, 0, 1), fc_value (4 x 8), quarter by quarter
+// (`ops/pointnet_att.py::pack_head_tf32x3`)
+constexpr int SLICES = 2 + 4 + 16 + 32;
+constexpr int WGS = 2;  // warpgroups, one patch each
+constexpr int THREADS_TF = WGS * WG_THREADS;  // thread 0 also feeds the ring
+// a consumer's floats: activations, every tile's logits (two rounds), the
+// tiles' column sums (two rounds; the leader's), per-warp column sums
+constexpr int ACT = 64 * W;
+constexpr int WG_FLOATS = ACT + 2 * PMAX + 2 * 4 * W + 4 * W;
+constexpr size_t SMEM = 1024 + STAGES * SLICE + WGS * WG_FLOATS * sizeof(float) +
+                        2 * STAGES * sizeof(uint64_t);
+
+using RingTF = gm::FedRing<STAGES, SLICE>;
+
+// dense + eval BN (`pointnet_pallas.py:41-53`) in f32 of the accumulators
+// of columns col, col + 1: the product plus the bias, then the affine
+// unfused, as the plain version computes it
+__device__ __forceinline__ float2 bn_f32(float acc0, float acc1, const float* __restrict__ aff,
+                                         int col) {
+  const float2 b = ld2(aff + col), g = ld2(aff + W + col), c = ld2(aff + 2 * W + col);
+  return make_float2(__fadd_rn(__fmul_rn(__fadd_rn(acc0, b.x), g.x), c.x),
+                     __fadd_rn(__fmul_rn(__fadd_rn(acc1, b.y), g.y), c.y));
+}
+
+// bn_f32 (+relu) of column quarter q into act; returns the fc_query dot
+// products of rows r0 and r0 + 8 over these columns (wq null: none)
+__device__ __forceinline__ float2 store_bn(const float (&total)[32], int q,
+                                           const float* __restrict__ aff, bool relu,
+                                           const float* __restrict__ wq, float* act, int r0,
+                                           int cl) {
+  float2 dot = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 64 * q + 8 * j + cl;
+    const float2 y0 = bn_f32(total[4 * j], total[4 * j + 1], aff, col);
+    const float2 y1 = bn_f32(total[4 * j + 2], total[4 * j + 3], aff, col);
+    *reinterpret_cast<float2*>(act + gm::act_offset(r0, col)) = relu ? relu2(y0) : y0;
+    *reinterpret_cast<float2*>(act + gm::act_offset(r0 + 8, col)) = relu ? relu2(y1) : y1;
+    if (wq) {
+      const float2 w = ld2(wq + col);
+      dot.x = fmaf(y0.y, w.y, fmaf(y0.x, w.x, dot.x));
+      dot.y = fmaf(y1.y, w.y, fmaf(y1.x, w.x, dot.y));
+    }
+  }
+  return dot;
+}
+
+__global__ void __launch_bounds__(THREADS_TF, 1)
+head_tf32_kernel(const float* __restrict__ x2, const float* __restrict__ wq,
+                 const float* __restrict__ aff, const float* __restrict__ bqv,
+                 const unsigned char* __restrict__ pack, float* __restrict__ out, int c, int p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* slots = gm::align1024(smem_raw);
+  float* floats = reinterpret_cast<float*>(slots + STAGES * SLICE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(floats + WGS * WG_FLOATS);
+  const int tiles = (p + 63) / 64;  // the cluster's CTAs
+  const uint32_t rank = gm::cluster_ctarank();  // this CTA's tile
+  const int rounds = (c + WGS - 1) / WGS;
+  const int first = gm::cluster_id();
+  const int step = gm::cluster_count();
+  // this cluster's rounds
+  const int mine = first < rounds ? (rounds - first + step - 1) / step : 0;
+  // thread 0 feeds the same slices for every round of the CTA
+  RingTF ring;
+  ring.slots = slots;
+  ring.full = bars;
+  ring.empty = bars + STAGES;
+  ring.src = pack;
+  ring.per_round = SLICES;
+  ring.total = mine * SLICES;
+  ring.producer = threadIdx.x == 0;
+  if (threadIdx.x == 0) ring.init(WGS * WG_THREADS);
+  gm::cluster_sync();  // every CTA's barriers and arrays exist before any remote use
+  ring.start();
+  const int wg = threadIdx.x / WG_THREADS;
+
+  // warpgroup `wg`: thread t, warp w, lane l
+  const int t = threadIdx.x % WG_THREADS;
+  const int w = t >> 5;
+  const int l = t & 31;
+  float* act = floats + wg * WG_FLOATS;
+  float* logits = act + ACT;            // [2 rounds][PMAX rows]
+  float* sums = logits + 2 * PMAX;      // [2 rounds][4 tiles][W]
+  float* colsum = sums + 2 * 4 * W;     // [4 warps][W]
+  auto sync = [wg] { gm::named_barrier(1 + wg, WG_THREADS); };
+  const int r0 = 16 * w + (l >> 2);  // fragment rows r0 and r0 + 8
+  const int cl = 2 * (l & 3);        // fragment column offset in an n8 block
+  const float bq = bqv[0];
+  const float ninf = -__int_as_float(0x7f800000);
+
+  // the leader's output of a round: the tiles' column sums in tile order
+  auto store_out = [&](int round, int buf) {
+    if (rank != 0 || WGS * round + wg >= c) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = t + WG_THREADS * h;
+      float s = sums[buf * 4 * W + col];
+      for (int r = 1; r < tiles; ++r) s += sums[(buf * 4 + r) * W + col];
+      out[static_cast<int64_t>(WGS * round + wg) * W + col] = s;
+    }
+  };
+
+#pragma unroll 1
+  for (int k = 0; k < mine; ++k) {
+    const int round = first + k * step;
+    const int buf = k & 1;
+    // x2's rows of this CTA's tile (the second patch of an odd last round
+    // repeats the last one, unstored; rows past p repeat the tile's first)
+    {
+      const int patch = min(WGS * round + wg, c - 1);
+      for (int i = t; i < 64 * 16; i += WG_THREADS) {
+        const int r = i >> 4, col = 4 * (i & 15);
+        const int row = 64 * static_cast<int>(rank) + r;
+        const int64_t src = static_cast<int64_t>(patch) * p + (row < p ? row : 64 * rank);
+        gm::cp_async16(act + gm::act_offset(r, col), x2 + src * 64 + col);
+      }
+      gm::cp_async_commit();
+      gm::cp_async_wait_all();
+      sync();
+    }
+
+    // conv1 64 -> 64, conv2 64 -> 128 (+BN+relu), conv3 128 -> 256 (+BN),
+    // in place, a column quarter at a time in the weight stream's order: a
+    // quarter whose columns the layer still reads (those below its input
+    // width) is held in registers until the layer's last product
+    {
+      float t0[32];
+      gm::mma_quarter_tf32x3<2>(t0, act, ring, r0, cl);
+      sync();
+      store_bn(t0, 0, aff, true, nullptr, act, r0, cl);
+      sync();
+    }
+    {
+      float t1[32];
+      gm::mma_quarter_tf32x3<2>(t1, act, ring, r0, cl);
+      store_bn(t1, 1, aff + 3 * W, true, nullptr, act, r0, cl);
+      gm::mma_quarter_tf32x3<2>(t1, act, ring, r0, cl);
+      sync();
+      store_bn(t1, 0, aff + 3 * W, true, nullptr, act, r0, cl);
+      sync();
+    }
+    // conv3's epilogue also takes fc_query's dot products of rows r0 and
+    // r0 + 8 over this thread's columns
+    float2 dot = make_float2(0.f, 0.f);
+    {
+      float t0[32], t1[32];
+#pragma unroll 1
+      for (int q = 2; q < 4; ++q) {
+        gm::mma_quarter_tf32x3<4>(t0, act, ring, r0, cl);
+        const float2 d = store_bn(t0, q, aff + 6 * W, false, wq, act, r0, cl);
+        dot = make_float2(dot.x + d.x, dot.y + d.y);
+      }
+      gm::mma_quarter_tf32x3<4>(t0, act, ring, r0, cl);
+      gm::mma_quarter_tf32x3<4>(t1, act, ring, r0, cl);
+      sync();
+      const float2 d0 = store_bn(t0, 0, aff + 6 * W, false, wq, act, r0, cl);
+      const float2 d1 = store_bn(t1, 1, aff + 6 * W, false, wq, act, r0, cl);
+      dot = make_float2(dot.x + d0.x + d1.x, dot.y + d0.y + d1.y);
+    }
+    // the four lanes l % 4 of a row hold all its columns; lane l % 4 == 0
+    // stores the row's logit into every CTA's array
+    float q0 = dot.x, q1 = dot.y;
+    q0 += __shfl_xor_sync(FULL, q0, 1);
+    q0 += __shfl_xor_sync(FULL, q0, 2);
+    q1 += __shfl_xor_sync(FULL, q1, 1);
+    q1 += __shfl_xor_sync(FULL, q1, 2);
+    if ((l & 3) == 0) {
+      const uint32_t at = gm::smem_u32(logits + PMAX * buf + 64 * rank + r0);
+      for (int r = 0; r < tiles; ++r) {
+        gm::st_cluster(gm::map_rank(at, r), q0 + bq);
+        gm::st_cluster(gm::map_rank(at + 32, r), q1 + bq);
+      }
+    }
+    sync();  // conv3's output is in act for fc_value
+    gm::cluster_arrive();
+
+    // fc_value 256 -> 256 (+bias), a column quarter at a time, weighted by
+    // the softmax and summed over the rows in f32: rows r0, r0 + 8, the 8
+    // lanes of a column, then the 4 warps. The first quarter's products run
+    // before the cluster barrier is waited on.
+    float a0 = 0.f, a1 = 0.f;  // the softmax weights of this tile's rows r0 and r0 + 8
+    auto weigh = [&](const float (&total)[32], int q) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * q + 8 * j + cl;
+        const float2 b = ld2(bqv + W + col);
+        const float2 sum = lane_reduce(
+            make_float2(
+                __fadd_rn(__fmul_rn(a0, __fadd_rn(total[4 * j], b.x)),
+                          __fmul_rn(a1, __fadd_rn(total[4 * j + 2], b.x))),
+                __fadd_rn(__fmul_rn(a0, __fadd_rn(total[4 * j + 1], b.y)),
+                          __fmul_rn(a1, __fadd_rn(total[4 * j + 3], b.y)))),
+            [](float x, float y) { return x + y; });
+        if (l < 4) *reinterpret_cast<float2*>(colsum + w * W + col) = sum;
+      }
+    };
+    float tv[32];
+    gm::mma_quarter_tf32x3<8>(tv, act, ring, r0, cl);
+    gm::cluster_wait();  // every tile's logits of this round are in, the sums of the last
+    if (k) store_out(round - step, buf ^ 1);
+
+    // softmax over the p real rows of all tiles, in every warp: lane l
+    // holds rows l + 32i; the sum accumulates in f32 in that fixed order.
+    // This tile's rows l and l + 32 are rows l + 32 (2 rank) and l + 32 (2
+    // rank + 1): warps 0-1 hold rows 0-31, warps 2-3 rows 32-63.
+    {
+      const float* lg = logits + PMAX * buf;
+      float m = ninf;
+#pragma unroll
+      for (int i = 0; i < PMAX / 32; ++i)
+        if (l + 32 * i < p) m = fmaxf(m, lg[l + 32 * i]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < PMAX / 32; ++i) s += l + 32 * i < p ? expf(lg[l + 32 * i] - m) : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+      const int row = l + 32 * (2 * static_cast<int>(rank) + (w >> 1));
+      const float weight = row < p ? expf(lg[row] - m) / s : 0.f;
+      a0 = __shfl_sync(FULL, weight, r0 & 31);
+      a1 = __shfl_sync(FULL, weight, (r0 + 8) & 31);
+    }
+    weigh(tv, 0);
+#pragma unroll 1
+    for (int q = 1; q < 4; ++q) {
+      gm::mma_quarter_tf32x3<8>(tv, act, ring, r0, cl);
+      weigh(tv, q);
+    }
+    sync();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = t + WG_THREADS * h;
+      gm::st_cluster(gm::map_rank(gm::smem_u32(sums + (buf * 4 + rank) * W + col), 0),
+                     colsum[col] + colsum[W + col] + colsum[2 * W + col] + colsum[3 * W + col]);
+    }
+  }
+  gm::cluster_sync();  // the last round's sums are in
+  if (mine) store_out(first + (mine - 1) * step, (mine - 1) & 1);
+  gm::cluster_sync();  // no CTA leaves while the leader may still take its stores
+}
+
+// the launch for c patches of p points: clusters of ceil(p / 64) CTAs, as
+// many at once as fit; `cfg` and `attr` are filled for the launch
+cudaError_t grid(int c, int p, int* cluster, int* active, int* blocks, cudaLaunchConfig_t* cfg,
+                 cudaLaunchAttribute* attr) {
+  cudaError_t err;
+  static int cached_device = -1;
+  static int cached_active[PMAX / 64 + 1] = {};
+  int device = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if (device != cached_device) {
+    if ((err = cudaFuncSetAttribute(head_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(SMEM))) != cudaSuccess)
+      return err;
+    for (int& a : cached_active) a = 0;
+    cached_device = device;
+  }
+  *cluster = (p + 63) / 64;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = *cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(*cluster);
+  cfg->blockDim = dim3(THREADS_TF);
+  cfg->dynamicSmemBytes = SMEM;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  if (!cached_active[*cluster] &&
+      (err = cudaOccupancyMaxActiveClusters(&cached_active[*cluster],
+                                            reinterpret_cast<const void*>(head_tf32_kernel),
+                                            cfg)) != cudaSuccess)
+    return err;
+  *active = cached_active[*cluster];
+  if (*active < 1) return cudaErrorInvalidConfiguration;
+  *blocks = min((c + WGS - 1) / WGS, *active) * *cluster;
+  cfg->gridDim = dim3(*blocks);
+  return cudaSuccess;
+}
+
+cudaError_t launch(const void* x2, const void* wq, const void* aff, const void* bqv,
+                   const void* pack, void* out, int c, int p, cudaStream_t stream) {
+  int cluster = 0, active = 0, blocks = 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = grid(c, p, &cluster, &active, &blocks, &cfg, attr);
+  if (err != cudaSuccess) return err;
+  cfg.stream = stream;
+  if ((err = cudaLaunchKernelEx(&cfg, head_tf32_kernel, static_cast<const float*>(x2),
+                                static_cast<const float*>(wq), static_cast<const float*>(aff),
+                                static_cast<const float*>(bqv),
+                                static_cast<const unsigned char*>(pack), static_cast<float*>(out),
+                                c, p)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 extern "C" int ppsurf_pointnet_trunk(const void* patches, const void* w0a,
@@ -1136,12 +1336,12 @@ extern "C" int ppsurf_pointnet_head(const void* x2, const void* wc1,
                                     const void* aff, const void* bqv,
                                     const void* pack, void* out, int c, int p,
                                     int is_bf16, void* stream) {
-  if (p < 1 || p > PMAX || c < 0 || (is_bf16 && !pack))
+  if (p < 1 || p > PMAX || c < 0 || !pack)
     return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch_head_bf16(x2, wq, aff, bqv, pack, out, c, p, s);
-  return launch_head<float>(x2, wc1, wc2, wc3, wq, wv, aff, bqv, out, c, p, s);
+  return tf32::launch(x2, wq, aff, bqv, pack, out, c, p, s);
 }
 
 // the cluster K5's launch for c patches of 64 < p <= 256 points: out[0]

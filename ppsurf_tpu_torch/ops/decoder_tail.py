@@ -43,9 +43,27 @@ while its bytes (latent table, ids, output) move in well under 0.1 ms.
   layout (`pack_wgmma_weights`), through a ring of four 16 KB slices with
   1-D bulk copies, so each slice serves both queries: about 208 KB of L2
   reads a query.
-- f32: one block of 256 threads a query, each thread an 8 x 8 register
-  tile of every product on the CUDA cores (f32 FMA, 67 TFLOP/s peak).
-  TF32 tensor cores would miss the f32 limit the field is held to.
+- f32 (`tf32::decoder_tail_tf32_kernel`): the bf16 kernel's shape with
+  every product on the tensor cores as 3xTF32: each f32 operand x is
+  split into tf32 hi = tf32(x) (round to nearest, ties away) and lo =
+  tf32(x - hi), and a product is hi.hi + hi.lo + lo.hi, three `wgmma`
+  m64n64k8 tf32 products into one f32 accumulator (about 2^-22 relative
+  error a product, the order of an f32 rounding; one TF32 product, about
+  2^-11, would miss the f32 limit the field is held to). Bound: 3 x 1.37
+  TFLOP at the TF32 peak of 495 TFLOP/s, 8.3 ms a chunk (20.4 ms at the
+  f32 FMA peak). The weights are split once per table
+  (`pack_tf32x3_weights`, 1.66 MB in 104 slices of 16 KB, each the hi
+  and lo tile of 64 output columns x 32 inputs) and streamed through a
+  ring of three slices by the block's thread 0, which also computes (a
+  producer warp would cut the registers to 168 a thread); two warpgroups
+  a block, one query each. A query's f32 activations (64 KB) stay in
+  shared memory; each product runs a column quarter at a time, splits its
+  A fragments in registers two k8 steps at a time, and adds each K-chunk
+  of 32 inputs as a fresh partial to the total in f32 on the CUDA cores;
+  fc2 and fc3 write over their input (one quarter staged in the logits'
+  space, three held in registers). Two queries share each slice: 832 KB
+  of L2 reads a query, about 42 GB a chunk, which the L2 serves at the
+  order of the operations' bound.
 - L=32 (POCO): 64 rows x 5 216 multiply-adds a query, 33 GFLOP at
   C=50 048 (0.034 ms on the bf16 tensor cores, 0.5 ms at the f32 FMA
   peak); the gathered latents are 0.2 GB in bf16, most of them served by
@@ -68,7 +86,8 @@ Rounding follows the plain version below and `decoder_pallas.py:22-26,
 38-46, 72-80`: every product accumulates in f32 and rounds to the compute
 dtype at its output; bias, relu and the softmax steps (shift, exp, sum,
 division, mean over heads) round to the compute dtype; the attention-
-weighted sum accumulates in f32.
+weighted sum accumulates in f32. In f32 the rounding to the compute dtype
+is the identity.
 """
 from __future__ import annotations
 
@@ -79,11 +98,11 @@ import torch
 
 from ppsurf_tpu_torch.models.norm import dense, softmax
 from ppsurf_tpu_torch.ops import kernels
-from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, weight_tile
+from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, tf32_stream, weight_tile
 
 
 # (latent width, heads) of the builds; in bf16 both run on the tensor cores
-# and need `wpack`
+# and need `wpack`, in f32 the latent-256 one
 SHAPES = ((256, 64), (32, 64))
 WGMMA_SHAPE = (256, 64)
 L32_SHAPE = (32, 64)
@@ -93,9 +112,10 @@ KMAX = 64  # neighbours a query
 @dataclasses.dataclass
 class DecoderTables:
     """Decoder-tail weights in the compute dtype (biases f32, rounded to
-    it): w1 (3, L) rel rows of fc1; w* (in, out); in bf16 also `wpack`,
-    w2, w3, wq and wv in the tensor-core kernel's operand layout
-    (`pack_wgmma_weights` at L=256, `pack_l32_weights` at L=32)."""
+    it): w1 (3, L) rel rows of fc1; w* (in, out); `wpack`, w2, w3, wq and
+    wv in the tensor-core kernel's operand layout: in bf16
+    (`pack_wgmma_weights` at L=256, `pack_l32_weights` at L=32) and in
+    f32 at L=256 (`pack_tf32x3_weights`)."""
 
     dt: torch.dtype
     w1: torch.Tensor
@@ -140,6 +160,16 @@ def pack_l32_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
     return torch.cat([tile(w2), tile(w3), tile(wq), tile(wv)]).contiguous()
 
 
+def pack_tf32x3_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
+                        wv: torch.Tensor) -> torch.Tensor:
+    """The f32 kernel's weight stream, 1.66 MB: 104 slices of 16 KB in the
+    order it multiplies (`ops/wgmma_layout.py::tf32_stream`), each the tf32
+    hi and lo tile of 64 output columns x 32 inputs: W2, W3 and Wv 32
+    slices each (4 column quarters x 8 K-chunks), Wq 8."""
+    return torch.cat(tf32_stream(w2) + tf32_stream(w3) + tf32_stream(wq)
+                     + tf32_stream(wv)).contiguous()
+
+
 @torch.no_grad()
 def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
     """Tables from an `InterpAttentionKHeadsNet` (fc1 is (L+3, L))."""
@@ -162,6 +192,8 @@ def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
         t.wpack = pack_wgmma_weights(t.w2, t.w3, t.wq, t.wv)
     elif dt == torch.bfloat16 and (lat, t.heads) == L32_SHAPE:
         t.wpack = pack_l32_weights(t.w2, t.w3, t.wq, t.wv)
+    elif dt == torch.float32 and (lat, t.heads) == WGMMA_SHAPE:
+        t.wpack = pack_tf32x3_weights(t.w2, t.w3, t.wq, t.wv)
     return t
 
 
@@ -183,15 +215,17 @@ def decoder_tail_plain(latents: torch.Tensor, pts: torch.Tensor,
 
 
 def _check(t: DecoderTables, lat: int, k: int) -> None:
-    """Raise unless the kernel is built for these tables and k, and bf16
-    tables carry their weight pack on the card."""
+    """Raise unless the kernel is built for these tables and k, and tables
+    of a tensor-core build (bf16; f32 at L=256) carry their weight pack on
+    the card."""
     if not 1 <= k <= KMAX or (lat, t.heads) not in SHAPES:
         raise ValueError(
             f"decoder_tail kernel is built for 1 <= k <= {KMAX} and (L, heads) in "
             f"{SHAPES}; got k={k}, L={lat}, heads={t.heads}"
         )
-    if t.dt == torch.bfloat16 and (t.wpack is None or not t.wpack.is_cuda):
-        raise ValueError("decoder_tail: bf16 tables need `wpack` on the card "
+    if ((t.dt == torch.bfloat16 or (lat, t.heads) == WGMMA_SHAPE)
+            and (t.wpack is None or not t.wpack.is_cuda)):
+        raise ValueError("decoder_tail: the tables need `wpack` on the card "
                          "(made by decoder_tables)")
 
 

@@ -40,9 +40,10 @@ read serves 2T tiles: 216 KB a round of two patches, as for one tile.
 The cluster is launched with a runtime size (`cudaLaunchKernelEx`) and
 the grid holds as many clusters as `cudaOccupancyMaxActiveClusters` says
 fit (30 of 4 CTAs on the H100, PERF.md). For one tile the bf16 K5 keeps
-its own kernel, which holds the softmax in registers. The f32 K5 walks a
-patch's tiles in one block and computes conv1-conv3 again for every tile
-but the last.
+its own kernel, which holds the softmax in registers. The f32 K5
+(`tf32::head_tf32_kernel`) runs every P in 1..256 on clusters of ceil(P/64)
+CTAs the same way (one CTA for P <= 64), so no tile's conv1-conv3 runs
+twice.
 
 What bounds them on an H100: operations. Per patch K4 is about 4.9 MFLOP
 and K5 about 11.1 MFLOP, 0.25 and 0.56 TFLOP per 50 048-query chunk —
@@ -73,9 +74,27 @@ most 0.13 ms. The 64-row tiles do 28% more work than the 50 real rows.
   sums over the rows in f32 from the fragments, so its (64, 256) output
   is never stored. PERF.md (Findings) records the designs that were
   measured and dropped.
-- f32: one block of 256 threads a patch, each thread an 8 x 8 register
+- f32 K5: every product but fc_query on the tensor cores as 3xTF32: each
+  f32 operand x is split into tf32 hi = tf32(x) (round to nearest, ties
+  away) and lo = tf32(x - hi), and a product is hi.hi + hi.lo + lo.hi,
+  three `wgmma` m64n64k8 tf32 products into one f32 accumulator (about
+  2^-22 relative error a product, the order of an f32 rounding; one TF32
+  product, about 2^-11, would miss the f32 limit the field is held to).
+  Bound at P=50: 3 x 0.55 TFLOP at the TF32 peak of 495 TFLOP/s, 3.4 ms
+  a chunk (8.3 ms at the f32 FMA peak). The weights are split once per
+  table (`pack_head_tf32x3`, 864 KB in 54 slices of 16 KB, the hi and lo
+  tile of 64 output columns x 32 inputs) and each CTA's thread 0
+  streams them through a ring of four slices for its two warpgroups, one
+  tile each: 432 KB of L2 reads a tile. A tile's f32 activations (64 KB)
+  stay in shared memory, each layer's output written over its input;
+  each product splits its A fragments in registers one K-chunk of 32
+  inputs at a time, each chunk a fresh partial added in f32 on the CUDA
+  cores. fc_query is a dot product on the CUDA cores in conv3's
+  epilogue; the softmax and the weighted sum are the cluster K5's.
+- f32 K4: one block of 256 threads a patch, each thread an 8 x 8 register
   tile of every product on the CUDA cores (f32 FMA, 67 TFLOP/s peak).
-  TF32 tensor cores would miss the f32 limit the field is held to.
+
+In f32 the rounding to the compute dtype is the identity.
 """
 from __future__ import annotations
 
@@ -86,7 +105,7 @@ import torch
 
 from ppsurf_tpu_torch.models.norm import dense, softmax
 from ppsurf_tpu_torch.ops import kernels
-from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, weight_tile
+from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, tf32_stream, weight_tile
 
 WIDTH = 256  # row width of the affine tables (widest layer)
 PMAX = 256  # the most points a patch the kernels take (four 64-row tiles)
@@ -94,14 +113,18 @@ PMAX = 256  # the most points a patch the kernels take (four 64-row tiles)
 # fc_value: the PPSurf widths the kernels are built for
 KERNEL_SHAPES = [(3, 64), (64, 64), (64, 64), (64, 128), (128, WIDTH),
                  (64, 64), (64, 128), (128, WIDTH), (WIDTH, 1), (WIDTH, WIDTH)]
+# the order of the column quarters of conv1, conv2, conv3 and fc_value in
+# the f32 K5's weight stream (`csrc/pointnet.cu`, `namespace tf32`)
+HEAD_QUARTERS = ((0,), (1, 0), (2, 3, 0, 1), (0, 1, 2, 3))
 
 
 @dataclasses.dataclass
 class PointNetTables:
     """Weights of the branch in the compute dtype; `*_aff` hold, per
-    layer, three f32 rows (dense bias rounded to dt, BN g, BN c); in bf16
-    at the PPSurf widths also `trunk_pack` and `head_pack`, the weights
-    of the tensor-core kernels in their operand layout."""
+    layer, three f32 rows (dense bias rounded to dt, BN g, BN c); at the
+    PPSurf widths also the weights of the tensor-core kernels in their
+    operand layout: in bf16 `trunk_pack` and `head_pack`, in f32
+    `head_pack` (`pack_head_tf32x3`)."""
 
     dt: torch.dtype
     trunk_w: typing.Tuple[torch.Tensor, ...]  # conv0a, conv0b, stn conv1..3
@@ -133,6 +156,17 @@ def pack_head_weights(wc1: torch.Tensor, wc2: torch.Tensor, wc3: torch.Tensor,
     16 KB each but the first."""
     return torch.cat([weight_tile(wc1, slice(None), 0), weight_tile(wc2, slice(None), 0),
                       *column_halves(wc3), *column_halves(wv)]).contiguous()
+
+
+def pack_head_tf32x3(wc1: torch.Tensor, wc2: torch.Tensor, wc3: torch.Tensor,
+                     wv: torch.Tensor) -> torch.Tensor:
+    """The f32 K5's weight stream, 864 KB: 54 slices of 16 KB in the order
+    it multiplies (`ops/wgmma_layout.py::tf32_stream`), each the tf32 hi
+    and lo tile of 64 output columns x 32 inputs: conv1 2, conv2 4, conv3
+    16, fc_value 32. A layer writes its output over its input, so the
+    column quarters beyond its input width come first (`HEAD_QUARTERS`)."""
+    return torch.cat([s for w, quarters in zip((wc1, wc2, wc3, wv), HEAD_QUARTERS)
+                      for s in tf32_stream(w, quarters)]).contiguous()
 
 
 def _aff(pairs) -> torch.Tensor:
@@ -182,6 +216,8 @@ def pointnet_tables(point_net) -> PointNetTables:
     if dt == torch.bfloat16 and _shapes(t) == KERNEL_SHAPES:
         t.trunk_pack = pack_trunk_weights(*t.trunk_w[1:])
         t.head_pack = pack_head_weights(*t.head_w[:3], t.head_w[4])
+    elif dt == torch.float32 and _shapes(t) == KERNEL_SHAPES:
+        t.head_pack = pack_head_tf32x3(*t.head_w[:3], t.head_w[4])
     return t
 
 
@@ -283,6 +319,9 @@ def _shapes(t: PointNetTables):
 
 def _check(t: PointNetTables, p: int, name: str, data: typing.Dict[str, torch.Tensor],
            pack: typing.Optional[torch.Tensor]):
+    """Raise unless the kernel is built for these tables and P, and the
+    tables carry the weight pack of a tensor-core build (K4 and K5 in bf16,
+    K5 in f32) on the card."""
     if _shapes(t) != KERNEL_SHAPES or not 1 <= p <= PMAX:
         raise ValueError(
             f"{name} kernel is built for the PPSurf widths (latent 256) and "
@@ -293,9 +332,9 @@ def _check(t: PointNetTables, p: int, name: str, data: typing.Dict[str, torch.Te
     tensors.update(trunk_aff=t.trunk_aff, head_aff=t.head_aff, bqv=t.bqv)
     dtypes = {k: t.dt for k in tensors if k not in ("trunk_aff", "head_aff", "bqv")}
     dtypes.update(trunk_aff=torch.float32, head_aff=torch.float32, bqv=torch.float32)
-    if t.dt == torch.bfloat16:
+    if t.dt == torch.bfloat16 or name == "pointnet_head":
         if pack is None:
-            raise ValueError(f"{name}: bf16 tables need their weight pack "
+            raise ValueError(f"{name}: the tables need their weight pack "
                              "(made by pointnet_tables)")
         tensors["pack"] = pack
     kernels.check_cuda_args(name, tensors, dtypes)

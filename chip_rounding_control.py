@@ -7,12 +7,13 @@ f32) and W1 (the metrics' winding number) to.
 Runs `chip_smoke.py` (with a short reconstruction, without the campaign
 phase) on this checkout and on
 copies of it in which one step of a kernel is removed: a rounding step of
-the bf16 K3-K5 epilogues, a term or rounding of the f32 K3 and K5's 3xTF32
+the bf16 K3-K5 epilogues, a term or rounding of the f32 K3-K5's 3xTF32
 products, or a term, guard or choice of W1's arithmetic. It prints
 each run's kernel check lines and exit code. The limits are sound where the
 unchanged run passes and each copy fails the checks of the kernel it
-changes (for the 3xTF32 copies, whose change is in the products both f32
-kernels share, the f32 checks of K3 and of K5 must each fail). `--only`
+changes (for the 3xTF32 copies of `mma_steps_tf32x3`, whose products the
+f32 K3 at latent 256, K4 and K5 share, the f32 checks of each must
+fail). `--only`
 runs the mutants whose name holds TEXT. Needs one CUDA card; the copies
 live in a temporary directory that is removed at the end.
 """
@@ -28,7 +29,9 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 SMOKE_ARGS = ["--resolution", "33", "--passes", "1", "--refine", "1", "--no-campaign"]
 
-F32_CHECKS = ("# K3 decoder_tail f32 ", "# K5 pointnet_head f32 ")
+# the f32 checks of the kernels whose products go through
+# `gmma.cuh::mma_steps_tf32x3` (K3 at latent 256, K4, K5)
+F32_CHECKS = ("# K3 decoder_tail f32 ", "# K4 pointnet_trunk f32 ", "# K5 pointnet_head f32 ")
 THREE_TERMS = (
     "#pragma unroll\n"
     "  for (int kk = 0; kk < 2; ++kk) {\n"
@@ -43,18 +46,18 @@ THREE_TERMS = (
 # name -> (source, text, the text with one step removed[, the check lines
 # that must each fail])
 MUTANTS = {
-    "K3/K5 f32 3xTF32: one TF32 term (hi x hi) only": (
+    "K3-K5 f32 3xTF32: one TF32 term (hi x hi) only": (
         "ppsurf_tpu_torch/csrc/gmma.cuh", THREE_TERMS,
         "#pragma unroll\n"
         "  for (int kk = 0; kk < 2; ++kk)\n"
         "    wgmma_m64n64k8_tf32_rs(d, ah[kk], desc_sw128(b + 32 * kk), accumulate | kk);"
         "  // hi x hi\n",
         F32_CHECKS),
-    "K3/K5 f32 3xTF32: lo x hi dropped": (
+    "K3-K5 f32 3xTF32: lo x hi dropped": (
         "ppsurf_tpu_torch/csrc/gmma.cuh",
         "    wgmma_m64n64k8_tf32_rs(d, al[kk], desc_sw128(b + 32 * kk), 1);  // lo x hi\n",
         "", F32_CHECKS),
-    "K3/K5 f32 3xTF32: hi by truncation, not cvt.rna": (
+    "K3-K5 f32 3xTF32: hi by truncation, not cvt.rna": (
         "ppsurf_tpu_torch/csrc/gmma.cuh",
         "  hi = tf32_rna(x);\n",
         "  hi = __float_as_uint(x) & 0xffffe000u;\n", F32_CHECKS),

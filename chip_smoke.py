@@ -14,11 +14,11 @@ In order, it:
    unless every K1 instantiation has a 0-byte stack frame, the SASS of
    each bf16 tensor-core kernel (K3 decoder tail at latent 256 and at
    latent 32, K4 PointNet trunk, K5 PointNet head for one tile and, as a
-   thread-block cluster, for two to four) and of the f32 3xTF32 K3
-   (latent 256) and K5 holds HGMMA instructions, ptxas reports 0 spill
-   bytes for the latent-32 K3, K4 and K5 ones, the f32 K3 and K5 (with a
-   0-byte stack frame) and every K2 and T1 kernel; prints the SASS
-   instruction count of each T1 variant's pass loop;
+   thread-block cluster, for two to four) and of each f32 3xTF32 kernel
+   (K3 at latent 256, K4, K5) holds HGMMA instructions, ptxas reports 0
+   spill bytes for the bf16 latent-32 K3, K4 and K5 ones, every f32 one
+   (each also with a 0-byte stack frame) and every K2 and T1 kernel; prints the SASS instruction count of each T1 variant's pass
+   loop;
 3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
    the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
    PointNet) at the production shapes, and the seven T1 selection
@@ -41,20 +41,22 @@ In order, it:
    the tensor cores; the f32 lines are timed likewise, beside their
    bound by both figures (the f32 FMA peak, and 3xTF32: three TF32
    products a product at the TF32 peak) and their products as f32
-   torch.matmul, TF32 off; the f32 K3 and K5 are checked on the committed
-   weights times (1 + 1e-3 seeded noise), whose 3xTF32 lo parts are not
-   zero (the committed weights are f16 values, exact in tf32); then the
-   builds of the other paths, bf16 and f32
-   under the same limits: K3 at latent 32 (POCO) at k in {1, 33, 50, 63,
-   64}, K3 at latent 256 at k in {1, 33, 40, 50, 63}, K4/K5 at P in {65,
-   100, 128, 129, 192, 200, 256} (every cluster size of K5, and last
-   tiles of one row), the ones on a path timed beside bound, plain
-   version and yardstick (in f32: K3 at latent 32, K4/K5 at P=100 and
-   200), with the launch shape of the latent-32 K3 and
-   the cluster K5 (CTAs a cluster, clusters or blocks the card holds at
-   once, the weight bytes a launch streams by design) and, for the
-   latent-32 K3, the SFU floor of its softmax beside its bound, on
-   comment lines;
+   torch.matmul, TF32 off; every f32 check of K3 (latent 256) and K4/K5
+   runs on weights times (1 + 1e-3 seeded noise), whose 3xTF32 lo parts
+   are not zero
+   (the committed weights are f16 values, exact in tf32, so a kernel that
+   misread its lo tiles would pass on them); then the builds of the other
+   paths, bf16 and f32 under the same limits: K3 at latent 32 (POCO) at k
+   in {1, 33, 50, 63, 64}, K3 at latent 256 at k in {1, 33, 40, 50, 63},
+   K4/K5 at P in {65, 100, 128, 129, 192, 200, 256} (every cluster size
+   of K5, and last tiles of one row), the ones on a path timed beside
+   bound, plain version and yardstick (in f32: K3 at latent 32, K4/K5 at
+   P=100 and 200), with the launch shape of the bf16 latent-32 K3 and
+   the cluster K5 (CTAs a cluster, clusters or blocks the card
+   holds at once, the weight bytes a launch streams by design) and, for
+   the latent-32 K3, the SFU floor of its softmax beside its bound, on
+   comment lines; each f32 row of the kernels line names its CUDA kernel
+   (`kernel`);
 4. reconstructs a seeded synthetic 60k-point surface cloud end to end with
    the committed weights in bf16 through `Predictor.reconstruct_shape`,
    with every kernel's launch count reset just before and read just after
@@ -218,6 +220,11 @@ NEW_BUILDS = ("decoder_tail_l32", "decoder_tail_k40", "pointnet_trunk_wide_p100"
 F32_BUILDS = ("decoder_tail_f32", "decoder_tail_l32_f32", "pointnet_trunk_f32",
               "pointnet_head_f32", "pointnet_trunk_wide_p100_f32", "pointnet_head_wide_p100_f32",
               "pointnet_trunk_wide_p200_f32", "pointnet_head_wide_p200_f32")
+# the CUDA kernel each f32 build launches, all 3xTF32 on the tensor cores
+F32_KERNELS = {"decoder_tail": "tf32::decoder_tail_tf32_kernel",
+               "decoder_tail_l32": "narrow::decoder_tail_narrow_kernel (CUDA cores)",
+               "pointnet_trunk": "tf32::trunk_tf32_kernel",
+               "pointnet_head": "tf32::head_tf32_kernel"}
 
 
 def fail(msg: str) -> typing.NoReturn:
@@ -418,16 +425,16 @@ def bound_ms(n_bytes: float, ops: float, kind: str):
 
 
 def full_mantissas(t, gen):
-    """f32 K3 or K5 tables whose tensor-core weights carry full f32
-    mantissas: each times (1 + 1e-3 seeded noise), the packs made again.
-    The committed weights are f16 values, exact in tf32, so their 3xTF32
-    lo tiles are zero and a kernel that misread them would pass."""
+    """f32 K3 or K4/K5 tables whose weights carry full f32 mantissas: each
+    times (1 + 1e-3 seeded noise), the packs made again. The committed
+    weights are f16 values, exact in tf32, so their 3xTF32 lo tiles are
+    zero and a kernel that misread them would pass."""
     import dataclasses
 
     import torch
 
     from ppsurf_tpu_torch.ops.decoder_tail import DecoderTables, pack_tf32x3_weights
-    from ppsurf_tpu_torch.ops.pointnet_att import pack_head_tf32x3
+    from ppsurf_tpu_torch.ops.pointnet_att import pack_head_tf32x3, pack_trunk_tf32x3
 
     def noisy(w):
         n = torch.randn(w.shape, generator=gen, device=w.device)
@@ -437,8 +444,37 @@ def full_mantissas(t, gen):
         t = dataclasses.replace(t, w2=noisy(t.w2), w3=noisy(t.w3), wq=noisy(t.wq), wv=noisy(t.wv))
         t.wpack = pack_tf32x3_weights(t.w2, t.w3, t.wq, t.wv)
         return t
+    trunk_w = tuple(noisy(w) for w in t.trunk_w)
     head_w = tuple(noisy(w) for w in t.head_w)
-    return dataclasses.replace(t, head_w=head_w, head_pack=pack_head_tf32x3(*head_w[:3], head_w[4]))
+    return dataclasses.replace(t, trunk_w=trunk_w, trunk_pack=pack_trunk_tf32x3(*trunk_w[1:]),
+                               head_w=head_w, head_pack=pack_head_tf32x3(*head_w[:3], head_w[4]))
+
+
+@contextlib.contextmanager
+def chunks_and_dtypes():
+    """While the block runs: the field chunks (`FieldEvaluator._field`
+    calls) under "chunks", and under "dtypes" each K3-K5 launch's dtype
+    code (its C entry's last argument: 1 bf16, 0 f32) by launch counter."""
+    from ppsurf_tpu_torch.ops import kernels
+    from ppsurf_tpu_torch.recon.field import FieldEvaluator
+
+    seen = {"chunks": 0, "dtypes": {}}
+    field_fn, launch_fn = FieldEvaluator._field, kernels.launch
+
+    def count_field(self, *a, **kw):
+        seen["chunks"] += 1
+        return field_fn(self, *a, **kw)
+
+    def launch_with_dtype(kernel, symbol, device, *a):
+        if symbol in ("ppsurf_decoder_tail", "ppsurf_pointnet_trunk", "ppsurf_pointnet_head"):
+            seen["dtypes"].setdefault(kernel, set()).add(a[-1])
+        return launch_fn(kernel, symbol, device, *a)
+
+    FieldEvaluator._field, kernels.launch = count_field, launch_with_dtype
+    try:
+        yield seen
+    finally:
+        FieldEvaluator._field, kernels.launch = field_fn, launch_fn
 
 
 def kernel_bounds(n_bytes: float, ops: float, tag: str) -> dict:
@@ -581,6 +617,8 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
                 del xg
             del lat, tabs
         pt = pointnet_tables(nets[dt].point_net)
+        if not bf:
+            pt = full_mantissas(pt, gen)
         for p in WIDE_P:
             pp = patch_space(pts[ids256[:, :p]], q).to(dt).contiguous()
             b_k, pool_k = pointnet_trunk(pp, pt)
@@ -1982,6 +2020,7 @@ def main() -> int:
                                   ("K5 bf16", "head_wgmma_kernel", True),
                                   ("K5 cluster bf16", "head_cluster_kernel", True),
                                   ("K3 f32 3xTF32", "decoder_tail_tf32_kernel", True),
+                                  ("K4 f32 3xTF32", "trunk_tf32_kernel", True),
                                   ("K5 f32 3xTF32", "head_tf32_kernel", True)):
         hgmma = sum(part.count("HGMMA") for part in sass.split("Function : ")
                     if kernel in part.split("\n", 1)[0])
@@ -2321,6 +2360,8 @@ def main() -> int:
                 control("K5", pn_mod, lambda: pointnet_head_plain(x2, pt), [h_p], tol)
             del pp, b_k, pool_k, b_p, pool_p, x2, h_k, h_p
         wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev)
+        for name in F32_BUILDS:
+            results[name]["kernel"] = F32_KERNELS[name[:-len("_f32")].split("_wide")[0]]
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     for res in results.values():
@@ -2484,31 +2525,16 @@ def main() -> int:
     spec_f32 = ppsurf_spec(dtype=torch.float32, gen_subsample_manifold_iter=args.passes,
                            gen_refine_iter=args.refine)
     predictor_f32 = Predictor(spec_f32, variables=variables, device="cuda", verbose=False)
-    field_calls, dtype_codes = [0], {}
-    field_fn, launch_fn = FieldEvaluator._field, kernels.launch
-
-    def count_field(self, *a, **kw):
-        field_calls[0] += 1
-        return field_fn(self, *a, **kw)
-
-    def launch_with_dtype(kernel, symbol, device, *a):
-        # K3-K5's last argument is the dtype code (1 bf16, 0 f32)
-        if symbol in ("ppsurf_decoder_tail", "ppsurf_pointnet_trunk", "ppsurf_pointnet_head"):
-            dtype_codes.setdefault(kernel, set()).add(a[-1])
-        return launch_fn(kernel, symbol, device, *a)
-
-    FieldEvaluator._field, kernels.launch = count_field, launch_with_dtype
     times_f32 = {}
     kernels.reset_launches()
-    try:
+    with chunks_and_dtypes() as seen:
         t0 = time.perf_counter()
         mesh_f32 = predictor_f32.reconstruct_shape(cloud, seed=0, resolution=args.resolution,
                                                    timings=times_f32)
         torch.cuda.synchronize()
         total_f32 = time.perf_counter() - t0
-    finally:
-        FieldEvaluator._field, kernels.launch = field_fn, launch_fn
     launches_f32 = dict(kernels.LAUNCHES)
+    field_calls, dtype_codes = [seen["chunks"]], seen["dtypes"]
     if mesh_f32 is None or mesh_f32.faces.shape[0] == 0 or not np.isfinite(mesh_f32.vertices).all():
         fail("the f32 reconstruction produced no finite mesh")
     print(f"# f32 e2e res {args.resolution}, {N_POINTS} pts, {args.passes} passes, refine "

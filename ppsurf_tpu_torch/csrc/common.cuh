@@ -30,70 +30,4 @@ __device__ __forceinline__ float rnd(float x) {
   return Num<T>::to_f(Num<T>::from_f(x));
 }
 
-// One block of 256 threads computes a (64 x NOUT) product
-//   acc = in[64][0:K] @ W[K][NOUT]
-// with in in shared memory (row stride `ld`) and W (K, NOUT) row-major in
-// global memory. Warp w owns rows 8w..8w+7; lane l owns the NC = NOUT/32
-// contiguous columns l*NC.., so a warp reads one contiguous row of W per
-// step and every lane of a warp reads the same activations (broadcast).
-constexpr int ROWS = 64;
-constexpr int THREADS = 256;
-
-template <typename T, int NOUT>
-__device__ __forceinline__ void block_matmul(const T* in, int ld, int K,
-                                             const T* __restrict__ W,
-                                             float (&acc)[8][NOUT / 32]) {
-  constexpr int NC = NOUT / 32;
-  const int r0 = (threadIdx.x >> 5) * 8;
-  const int c0 = (threadIdx.x & 31) * NC;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    float w[NC];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) w[j] = Num<T>::to_f(W[kk * NOUT + c0 + j]);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float a = Num<T>::to_f(in[(r0 + i) * ld + kk]);
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-    }
-  }
-}
-
-// Dense layer epilogue, flax numerics: y = rnd(acc); y = rnd(y + bias);
-// optionally eval BatchNorm y = rnd(y*g + c) and relu. `aff` points at
-// three f32 rows (bias, g, c) of width `aff_ld`; bias is dt-representable.
-template <typename T, int NOUT>
-__device__ __forceinline__ void block_dense(const T* in, int ld_in, int K,
-                                            const T* __restrict__ W,
-                                            const float* __restrict__ aff,
-                                            int aff_ld, bool bn, bool relu,
-                                            T* out, int ld_out) {
-  constexpr int NC = NOUT / 32;
-  float acc[8][NC];
-  block_matmul<T, NOUT>(in, ld_in, K, W, acc);
-  __syncthreads();  // all reads of `in` done: `out` may alias it
-  const int r0 = (threadIdx.x >> 5) * 8;
-  const int c0 = (threadIdx.x & 31) * NC;
-#pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int c = c0 + j;
-    const float b = aff[c];
-    const float g = bn ? aff[aff_ld + c] : 1.f;
-    const float s = bn ? aff[2 * aff_ld + c] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float y = rnd<T>(rnd<T>(acc[i][j]) + b);
-      if (bn) y = rnd<T>(y * g + s);
-      if (relu) y = fmaxf(y, 0.f);
-      out[(r0 + i) * ld_out + c] = Num<T>::from_f(y);
-    }
-  }
-  __syncthreads();
-}
-
 }  // namespace ppsurf

@@ -38,7 +38,7 @@ namespace {
 
 using ppsurf::rnd;
 
-constexpr int K = 64;       // neighbours per query (= ROWS)
+constexpr int K = 64;       // neighbours per query: the 64 rows of a tile
 constexpr int LAT = 256;    // latent width
 constexpr int HEADS = 64;   // attention heads
 

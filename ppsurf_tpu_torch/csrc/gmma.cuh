@@ -414,15 +414,17 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 // image. A k8 step is 32 bytes of the row, so `desc_sw128(tile + 32 kk)`
 // addresses step kk as it addresses a bf16 k16 step.
 //
-// Activations: (64 x 256) f32 row-major in shared memory, the 32-byte
-// unit u of row r stored at unit u ^ (r % 8), so the fragment loads and
-// stores (8 rows x 4 float2 a warp) take two wavefronts.
+// Activations: (64 x LD) f32 row-major in shared memory (LD 256, or 128
+// for K4, whose widest stored layer has 128 columns), the 32-byte unit u
+// of row r stored at unit u ^ (r % 8), so the fragment loads and stores
+// (8 rows x 4 float2 a warp) take two wavefronts.
 
 constexpr int TF32_TILE = 8192;              // one (64 x 32) f32 weight tile
 constexpr int TF32_SLICE = 2 * TF32_TILE;    // its hi and lo images
 
+template <int LD = 256>
 __device__ __forceinline__ int act_offset(int r, int c) {
-  return r * 256 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
+  return r * LD + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
 }
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -439,10 +441,11 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
 
 // the hi and lo A fragments of k8 step g (inputs 8g..8g+7) of the f32
 // activation at `act`; r0, cl: the thread's fragment row and column offset
+template <int LD = 256>
 __device__ __forceinline__ void load_a_tf32(const float* act, int g, int r0, int cl,
                                             uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const float2 x0 = *reinterpret_cast<const float2*>(act + act_offset(r0, 8 * g + cl));
-  const float2 x1 = *reinterpret_cast<const float2*>(act + act_offset(r0 + 8, 8 * g + cl));
+  const float2 x0 = *reinterpret_cast<const float2*>(act + act_offset<LD>(r0, 8 * g + cl));
+  const float2 x1 = *reinterpret_cast<const float2*>(act + act_offset<LD>(r0 + 8, 8 * g + cl));
   split_tf32(x0.x, hi[0], lo[0]);
   split_tf32(x1.x, hi[1], lo[1]);
   split_tf32(x0.y, hi[2], lo[2]);
@@ -512,7 +515,7 @@ __device__ __forceinline__ void mma_steps_tf32x3(float (&d)[32], uint32_t (&ah)[
 // at the accumulator's exponent; PERF.md). Only the quarter's accumulators, the partial and two
 // steps' fragments are live, so a layer holds at most the quarters it
 // cannot yet write.
-template <int CHUNKS, bool PARTIALS = true, typename RingT>
+template <int CHUNKS, bool PARTIALS = true, int LD = 256, typename RingT>
 __device__ __forceinline__ void mma_quarter_tf32x3(float (&total)[32], const float* act,
                                                    RingT& ring, int r0, int cl) {
   auto steps = [&](float (&d)[32], int kc, uint32_t b, int accumulate) {
@@ -521,7 +524,7 @@ __device__ __forceinline__ void mma_quarter_tf32x3(float (&total)[32], const flo
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
-        load_a_tf32(act, 4 * kc + 2 * h + kk, r0, cl, ah[kk], al[kk]);
+        load_a_tf32<LD>(act, 4 * kc + 2 * h + kk, r0, cl, ah[kk], al[kk]);
       mma_steps_tf32x3(d, ah, al, b + 64 * h, accumulate | h);
     }
   };

@@ -18,8 +18,7 @@
 // cluster, each tile's logits meet through distributed shared memory
 // before the max, the exp, the sum and the division, and each CTA weights
 // the values of its own tile, whose conv3 output never left its shared
-// memory. The f32 K5 walks the tiles in one block and runs conv1-conv3
-// again for every tile but the last.
+// memory. The f32 K5 runs every P on such clusters.
 //
 // bf16 (`trunk_wgmma_kernel`, `head_wgmma_kernel`): one patch is one
 // `wgmma` m64 tile, and each consumer warpgroup owns whole patches, so the
@@ -41,73 +40,20 @@
 //      epilogue; fc_value's epilogue weights each rounded value by the
 //      softmax and sums the rows in f32 from the fragments.
 //
-// f32 (`trunk_kernel<float>`, `head_kernel<float>`): one block of 256
-// threads a patch, every product as f32 FMA on the CUDA cores. It stays
-// there: TF32 tensor cores keep 10 mantissa bits and would miss the f32
-// limit (1e-4 x scale) that the f32 field is held to.
+// f32 (`tf32::trunk_tf32_kernel`, `tf32::head_tf32_kernel`): the same
+// products as 3xTF32 on the tensor cores (`wgmma` on tf32 hi and lo
+// operands, `gmma.cuh`), which keeps f32 accuracy where one TF32 product
+// would miss the f32 limit (1e-4 x scale) that the f32 field is held to.
+// See `namespace tf32` below.
 #include "common.cuh"
 #include "gmma.cuh"
 
 namespace {
 
-using ppsurf::block_dense;
-using ppsurf::block_matmul;
-using ppsurf::Num;
 using ppsurf::rnd;
-using ppsurf::ROWS;
-using ppsurf::THREADS;
 
 constexpr int W = 256;  // widest layer = activation row stride = aff width
-
-template <typename T>
-constexpr size_t trunk_smem() {
-  return sizeof(T) * ROWS * W;
-}
-
-constexpr int PMAX = 4 * ROWS;  // the most points a patch the kernels take
-
-// load rows [0, p) of a (p, width) patch, repeating row 0 into [p, 64)
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, int p,
-                                          int width, T* x) {
-  for (int idx = threadIdx.x; idx < ROWS * width; idx += THREADS) {
-    const int r = idx / width;
-    const int col = idx - r * width;
-    x[r * W + col] = src[(r < p ? r : 0) * width + col];
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-trunk_kernel(const T* __restrict__ patches, const T* __restrict__ w0a,
-             const T* __restrict__ w0b, const T* __restrict__ ws1,
-             const T* __restrict__ ws2, const T* __restrict__ ws3,
-             const float* __restrict__ aff, T* __restrict__ b_out,
-             T* __restrict__ pooled, int p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* x = reinterpret_cast<T*>(smem);
-  const int64_t c = blockIdx.x;
-  float m = -__int_as_float(0x7f800000);
-  for (int r0 = 0; r0 < p; r0 += ROWS) {
-    const int rows = min(ROWS, p - r0);  // this tile's real rows
-    load_rows<T>(patches + (c * p + r0) * 3, rows, 3, x);
-
-    block_dense<T, 64>(x, W, 3, w0a, aff + 0 * W, W, true, true, x, W);
-    block_dense<T, 64>(x, W, 64, w0b, aff + 3 * W, W, true, true, x, W);
-    for (int idx = threadIdx.x; idx < rows * 64; idx += THREADS) {
-      const int r = idx >> 6;
-      b_out[(c * p + r0 + r) * 64 + (idx & 63)] = x[r * W + (idx & 63)];
-    }
-    block_dense<T, 64>(x, W, 64, ws1, aff + 6 * W, W, true, true, x, W);
-    block_dense<T, 128>(x, W, 64, ws2, aff + 9 * W, W, true, true, x, W);
-    block_dense<T, 256>(x, W, 128, ws3, aff + 12 * W, W, true, true, x, W);
-
-    for (int r = 0; r < rows; ++r) m = fmaxf(m, Num<T>::to_f(x[r * W + threadIdx.x]));
-    __syncthreads();  // the next tile overwrites x
-  }
-  pooled[c * W + threadIdx.x] = Num<T>::from_f(m);
-}
+constexpr int PMAX = 256;  // the most points a patch the kernels take (four 64-row tiles)
 
 // ---- bf16 on the tensor cores ----
 namespace gm = ppsurf::gmma;
@@ -865,25 +811,6 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
-template <typename T>
-cudaError_t launch_trunk(const void* patches, const void* w0a, const void* w0b,
-                         const void* ws1, const void* ws2, const void* ws3,
-                         const void* aff, void* b_out, void* pooled, int c,
-                         int p, cudaStream_t stream) {
-  constexpr size_t bytes = trunk_smem<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      trunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  trunk_kernel<T><<<c, THREADS, bytes, stream>>>(
-      static_cast<const T*>(patches), static_cast<const T*>(w0a),
-      static_cast<const T*>(w0b), static_cast<const T*>(ws1),
-      static_cast<const T*>(ws2), static_cast<const T*>(ws3),
-      static_cast<const float*>(aff), static_cast<T*>(b_out),
-      static_cast<T*>(pooled), p);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_trunk_bf16(const void* patches, const void* w0a, const void* aff,
                               const void* pack, void* b_out, void* pooled, int c, int p,
                               cudaStream_t stream) {
@@ -1037,8 +964,10 @@ __device__ __forceinline__ float2 bn_f32(float acc0, float acc1, const float* __
                      __fadd_rn(__fmul_rn(__fadd_rn(acc1, b.y), g.y), c.y));
 }
 
-// bn_f32 (+relu) of column quarter q into act; returns the fc_query dot
-// products of rows r0 and r0 + 8 over these columns (wq null: none)
+// bn_f32 (+relu) of column quarter q into act (rows LD floats apart);
+// returns the fc_query dot products of rows r0 and r0 + 8 over these
+// columns (wq null: none)
+template <int LD = 256>
 __device__ __forceinline__ float2 store_bn(const float (&total)[32], int q,
                                            const float* __restrict__ aff, bool relu,
                                            const float* __restrict__ wq, float* act, int r0,
@@ -1049,8 +978,8 @@ __device__ __forceinline__ float2 store_bn(const float (&total)[32], int q,
     const int col = 64 * q + 8 * j + cl;
     const float2 y0 = bn_f32(total[4 * j], total[4 * j + 1], aff, col);
     const float2 y1 = bn_f32(total[4 * j + 2], total[4 * j + 3], aff, col);
-    *reinterpret_cast<float2*>(act + gm::act_offset(r0, col)) = relu ? relu2(y0) : y0;
-    *reinterpret_cast<float2*>(act + gm::act_offset(r0 + 8, col)) = relu ? relu2(y1) : y1;
+    *reinterpret_cast<float2*>(act + gm::act_offset<LD>(r0, col)) = relu ? relu2(y0) : y0;
+    *reinterpret_cast<float2*>(act + gm::act_offset<LD>(r0 + 8, col)) = relu ? relu2(y1) : y1;
     if (wq) {
       const float2 w = ld2(wq + col);
       dot.x = fmaf(y0.y, w.y, fmaf(y0.x, w.x, dot.x));
@@ -1311,6 +1240,204 @@ cudaError_t launch(const void* x2, const void* wq, const void* aff, const void* 
   return cudaGetLastError();
 }
 
+// ---- K4 in f32 on the tensor cores: 3xTF32 ----
+//
+// Persistent blocks, one per SM, of TRUNK_WGS warpgroups, each on its own
+// patches (a round is one patch a warpgroup; the last round's spare
+// warpgroups repeat the last patch, unstored). A patch's tiles of 64 rows
+// run one after the other in its warpgroup: the max over them needs no
+// cluster, its order does not change it. Thread 0 feeds the ring
+// (`gmma.cuh::FedRing`) with the same 24 slices for every tile of a round
+// (`ops/pointnet_att.py::pack_trunk_tf32x3`, 384 KB: the tf32 hi and lo
+// tile of 64 output columns x 32 inputs, conv0b 2, stn conv1 2, stn conv2
+// 4 (quarter 1 first), stn conv3 16), so a slice serves the block's
+// TRUNK_WGS tiles. conv0a (K=3) runs on the CUDA cores in f32 from the
+// patch rows, loaded a tile ahead. conv0b, stn conv1 and stn conv2 run a
+// column quarter at a time (`gmma.cuh::mma_quarter_tf32x3`, a fresh
+// partial a K-chunk of 32 inputs) on the f32 activation in shared memory
+// and write their output over their input; b is copied out after conv0b.
+// stn conv3's output is never stored: each quarter's bn + relu is
+// max-reduced from the fragments (rows r0 and r0 + 8, the 8 lanes that
+// share the columns, then the 4 warps, across the tiles), so the widest
+// stored activation is stn conv2's, 128 columns, 32 KB a warpgroup.
+constexpr int TRUNK_WGS = 3;
+constexpr int TRUNK_THREADS = TRUNK_WGS * WG_THREADS;  // thread 0 also feeds the ring
+// conv0b (1 column quarter x 2 K-chunks), stn conv1 (1 x 2), stn conv2 (2
+// x 2: quarter 1 first), stn conv3 (4 x 4), quarter by quarter
+// (`ops/pointnet_att.py::TRUNK_QUARTERS`)
+constexpr int TRUNK_SLICES = 2 + 2 + 4 + 16;
+constexpr int TRUNK_LD = 128;  // an activation row: stn conv2's 128 columns
+// a warpgroup's floats: activations, per-warp column maxima
+constexpr int TRUNK_FLOATS = 64 * TRUNK_LD + 4 * W;
+constexpr size_t TRUNK_SMEM = 1024 + STAGES * SLICE + TRUNK_WGS * TRUNK_FLOATS * sizeof(float) +
+                              2 * STAGES * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(TRUNK_THREADS, 1)
+trunk_tf32_kernel(const float* __restrict__ patches, const float* __restrict__ w0a,
+                  const float* __restrict__ aff, const unsigned char* __restrict__ pack,
+                  float* __restrict__ b_out, float* __restrict__ pooled, int c, int p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* slots = gm::align1024(smem_raw);
+  float* floats = reinterpret_cast<float*>(slots + STAGES * SLICE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(floats + TRUNK_WGS * TRUNK_FLOATS);
+  const int tiles = (p + 63) / 64;
+  const int rounds = (c + TRUNK_WGS - 1) / TRUNK_WGS;
+  // thread 0 feeds the same slices for every tile of the block's rounds
+  RingTF ring;
+  ring.slots = slots;
+  ring.full = bars;
+  ring.empty = bars + STAGES;
+  ring.src = pack;
+  ring.per_round = TRUNK_SLICES;
+  ring.total = static_cast<int>(blockIdx.x) < rounds
+                   ? (rounds - blockIdx.x + gridDim.x - 1) / gridDim.x * tiles * TRUNK_SLICES
+                   : 0;
+  ring.producer = threadIdx.x == 0;
+  if (threadIdx.x == 0) ring.init(TRUNK_THREADS);
+  __syncthreads();
+  ring.start();
+
+  // warpgroup `wg`: thread t, warp w, lane l
+  const int wg = threadIdx.x / WG_THREADS;
+  const int t = threadIdx.x % WG_THREADS;
+  const int w = t >> 5;
+  const int l = t & 31;
+  float* act = floats + wg * TRUNK_FLOATS;
+  float* colmax = act + 64 * TRUNK_LD;  // per-warp column maxima
+  auto sync = [wg] { gm::named_barrier(1 + wg, WG_THREADS); };
+  const int r0 = 16 * w + (l >> 2);  // fragment rows r0 and r0 + 8
+  const int cl = 2 * (l & 3);        // fragment column offset in an n8 block
+  const int r = t >> 1;              // conv0a: thread t computes 32 columns of row t / 2
+  auto patch_of = [&](int round) { return min(TRUNK_WGS * round + wg, c - 1); };
+
+  // row r's point of tile `tile` of a patch, loaded a tile ahead; rows
+  // past p repeat the tile's first point
+  float next[3];
+  auto load_point = [&](int patch, int tile) {
+    const int row = 64 * tile + r;
+    const float* src = patches + (static_cast<int64_t>(patch) * p + (row < p ? row : 64 * tile)) * 3;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) next[d] = src[d];
+  };
+  if (static_cast<int>(blockIdx.x) < rounds) load_point(patch_of(blockIdx.x), 0);
+
+#pragma unroll 1
+  for (int round = blockIdx.x; round < rounds; round += gridDim.x) {
+    const int patch = patch_of(round);
+    const bool store = TRUNK_WGS * round + wg < c;
+#pragma unroll 1
+    for (int tile = 0; tile < tiles; ++tile) {
+      // conv0a (K=3) on the CUDA cores, f32 FMA in the plain product's order
+      {
+        const float x0 = next[0], x1 = next[1], x2 = next[2];
+        if (tile + 1 < tiles) load_point(patch, tile + 1);
+        else if (round + static_cast<int>(gridDim.x) < rounds)
+          load_point(patch_of(round + gridDim.x), 0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int col0 = 32 * (t & 1) + 8 * u;
+          float y[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = col0 + 2 * e;
+            const float2 wa = ld2(w0a + col), wb = ld2(w0a + 64 + col), wc = ld2(w0a + 128 + col);
+            const float2 v = relu2(bn_f32(fmaf(x2, wc.x, fmaf(x1, wb.x, fmaf(x0, wa.x, 0.f))),
+                                          fmaf(x2, wc.y, fmaf(x1, wb.y, fmaf(x0, wa.y, 0.f))),
+                                          aff, col));
+            y[2 * e] = v.x;
+            y[2 * e + 1] = v.y;
+          }
+          float4* dst = reinterpret_cast<float4*>(act + gm::act_offset<TRUNK_LD>(r, col0));
+          dst[0] = make_float4(y[0], y[1], y[2], y[3]);
+          dst[1] = make_float4(y[4], y[5], y[6], y[7]);
+        }
+      }
+      sync();
+
+      // conv0b 64 -> 64 in place, then b's rows below p to global memory
+      {
+        float t0[32];
+        gm::mma_quarter_tf32x3<2, true, TRUNK_LD>(t0, act, ring, r0, cl);
+        sync();
+        store_bn<TRUNK_LD>(t0, 0, aff + 3 * W, true, nullptr, act, r0, cl);
+        sync();
+      }
+      if (store) {
+        float4* dst = reinterpret_cast<float4*>(
+            b_out + (static_cast<int64_t>(patch) * p + 64 * tile) * 64);
+        for (int i = t; i < min(64, p - 64 * tile) * 16; i += WG_THREADS)
+          dst[i] = *reinterpret_cast<const float4*>(
+              act + gm::act_offset<TRUNK_LD>(i >> 4, 4 * (i & 15)));
+      }
+
+      // stn conv1 64 -> 64, conv2 64 -> 128 (+BN+relu), in place: conv2's
+      // quarter 1 (beyond its input width) is written at once
+      {
+        float t0[32];
+        gm::mma_quarter_tf32x3<2, true, TRUNK_LD>(t0, act, ring, r0, cl);
+        sync();  // and b is copied out
+        store_bn<TRUNK_LD>(t0, 0, aff + 6 * W, true, nullptr, act, r0, cl);
+        sync();
+      }
+      {
+        float t1[32];
+        gm::mma_quarter_tf32x3<2, true, TRUNK_LD>(t1, act, ring, r0, cl);
+        store_bn<TRUNK_LD>(t1, 1, aff + 9 * W, true, nullptr, act, r0, cl);
+        gm::mma_quarter_tf32x3<2, true, TRUNK_LD>(t1, act, ring, r0, cl);
+        sync();
+        store_bn<TRUNK_LD>(t1, 0, aff + 9 * W, true, nullptr, act, r0, cl);
+        sync();
+      }
+
+      // stn conv3 128 -> 256, +BN+relu, a column quarter at a time, and the
+      // max over the tile's 64 rows (rows past p repeat a real row)
+      // straight from the fragments, then over the tiles
+#pragma unroll 1
+      for (int q = 0; q < 4; ++q) {
+        float tq[32];
+        gm::mma_quarter_tf32x3<4, true, TRUNK_LD>(tq, act, ring, r0, cl);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * q + 8 * j + cl;
+          const float2 y0 = relu2(bn_f32(tq[4 * j], tq[4 * j + 1], aff + 12 * W, col));
+          const float2 y1 = relu2(bn_f32(tq[4 * j + 2], tq[4 * j + 3], aff + 12 * W, col));
+          const float2 m = lane_reduce(make_float2(fmaxf(y0.x, y1.x), fmaxf(y0.y, y1.y)),
+                                       [](float a, float b) { return fmaxf(a, b); });
+          if (l < 4) {
+            float2* cm = reinterpret_cast<float2*>(colmax + w * W + col);
+            *cm = tile == 0 ? m : make_float2(fmaxf(cm->x, m.x), fmaxf(cm->y, m.y));
+          }
+        }
+      }
+      sync();  // every read of act and every column maximum of the tile is done
+    }
+    if (store) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = t + WG_THREADS * h;
+        pooled[static_cast<int64_t>(patch) * W + col] =
+            fmaxf(fmaxf(colmax[col], colmax[W + col]), fmaxf(colmax[2 * W + col], colmax[3 * W + col]));
+      }
+    }
+  }
+}
+
+cudaError_t launch_trunk(const void* patches, const void* w0a, const void* aff, const void* pack,
+                         void* b_out, void* pooled, int c, int p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(trunk_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(TRUNK_SMEM));
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const int blocks = min((c + TRUNK_WGS - 1) / TRUNK_WGS, sms);
+  trunk_tf32_kernel<<<blocks, TRUNK_THREADS, TRUNK_SMEM, stream>>>(
+      static_cast<const float*>(patches), static_cast<const float*>(w0a),
+      static_cast<const float*>(aff), static_cast<const unsigned char*>(pack),
+      static_cast<float*>(b_out), static_cast<float*>(pooled), c, p);
+  return cudaGetLastError();
+}
+
 }  // namespace tf32
 
 }  // namespace
@@ -1321,13 +1448,12 @@ extern "C" int ppsurf_pointnet_trunk(const void* patches, const void* w0a,
                                      const void* aff, const void* pack,
                                      void* b_out, void* pooled, int c, int p,
                                      int is_bf16, void* stream) {
-  if (p < 1 || p > PMAX || c < 0 || (is_bf16 && !pack))
+  if (p < 1 || p > PMAX || c < 0 || !pack)
     return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch_trunk_bf16(patches, w0a, aff, pack, b_out, pooled, c, p, s);
-  return launch_trunk<float>(patches, w0a, w0b, ws1, ws2, ws3, aff, b_out,
-                             pooled, c, p, s);
+  return tf32::launch_trunk(patches, w0a, aff, pack, b_out, pooled, c, p, s);
 }
 
 extern "C" int ppsurf_pointnet_head(const void* x2, const void* wc1,

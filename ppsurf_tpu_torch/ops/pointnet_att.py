@@ -91,8 +91,16 @@ most 0.13 ms. The 64-row tiles do 28% more work than the 50 real rows.
   inputs at a time, each chunk a fresh partial added in f32 on the CUDA
   cores. fc_query is a dot product on the CUDA cores in conv3's
   epilogue; the softmax and the weighted sum are the cluster K5's.
-- f32 K4: one block of 256 threads a patch, each thread an 8 x 8 register
-  tile of every product on the CUDA cores (f32 FMA, 67 TFLOP/s peak).
+- f32 K4: every product but conv0a (K=3, CUDA cores) as 3xTF32, as the
+  f32 K5. Bound at P=50: 3 x 0.25 TFLOP at the TF32 peak, 1.5 ms a chunk
+  (3.7 ms at the f32 FMA peak). Persistent blocks of three warpgroups, one
+  patch each, its tiles one after the other (a max needs no cluster);
+  each block's thread 0 streams the 384 KB of split weights
+  (`pack_trunk_tf32x3`, 24 slices) through a ring of four, so a slice
+  serves three tiles: 128 KB of L2 reads a tile. conv0b, stn conv1 and
+  stn conv2 write their output over their input in shared memory (32 KB
+  a warpgroup: stn conv3's output is never stored, its max over the rows
+  taken from the fragments and over the tiles in shared memory).
 
 In f32 the rounding to the compute dtype is the identity.
 """
@@ -116,6 +124,8 @@ KERNEL_SHAPES = [(3, 64), (64, 64), (64, 64), (64, 128), (128, WIDTH),
 # the order of the column quarters of conv1, conv2, conv3 and fc_value in
 # the f32 K5's weight stream (`csrc/pointnet.cu`, `namespace tf32`)
 HEAD_QUARTERS = ((0,), (1, 0), (2, 3, 0, 1), (0, 1, 2, 3))
+# and of conv0b, stn conv1, stn conv2 and stn conv3 in the f32 K4's
+TRUNK_QUARTERS = ((0,), (0,), (1, 0), (0, 1, 2, 3))
 
 
 @dataclasses.dataclass
@@ -123,8 +133,9 @@ class PointNetTables:
     """Weights of the branch in the compute dtype; `*_aff` hold, per
     layer, three f32 rows (dense bias rounded to dt, BN g, BN c); at the
     PPSurf widths also the weights of the tensor-core kernels in their
-    operand layout: in bf16 `trunk_pack` and `head_pack`, in f32
-    `head_pack` (`pack_head_tf32x3`)."""
+    operand layout, `trunk_pack` and `head_pack`: in bf16
+    (`pack_trunk_weights`, `pack_head_weights`) and in f32
+    (`pack_trunk_tf32x3`, `pack_head_tf32x3`)."""
 
     dt: torch.dtype
     trunk_w: typing.Tuple[torch.Tensor, ...]  # conv0a, conv0b, stn conv1..3
@@ -166,6 +177,18 @@ def pack_head_tf32x3(wc1: torch.Tensor, wc2: torch.Tensor, wc3: torch.Tensor,
     16, fc_value 32. A layer writes its output over its input, so the
     column quarters beyond its input width come first (`HEAD_QUARTERS`)."""
     return torch.cat([s for w, quarters in zip((wc1, wc2, wc3, wv), HEAD_QUARTERS)
+                      for s in tf32_stream(w, quarters)]).contiguous()
+
+
+def pack_trunk_tf32x3(w0b: torch.Tensor, ws1: torch.Tensor, ws2: torch.Tensor,
+                      ws3: torch.Tensor) -> torch.Tensor:
+    """The f32 K4's weight stream, 384 KB: 24 slices of 16 KB in the order
+    it multiplies (`ops/wgmma_layout.py::tf32_stream`), each the tf32 hi
+    and lo tile of 64 output columns x 32 inputs: conv0b 2, stn conv1 2,
+    stn conv2 4, stn conv3 16. A layer writes its output over its input, so
+    stn conv2's quarter beyond its input width comes first
+    (`TRUNK_QUARTERS`); stn conv3's output is never stored."""
+    return torch.cat([s for w, quarters in zip((w0b, ws1, ws2, ws3), TRUNK_QUARTERS)
                       for s in tf32_stream(w, quarters)]).contiguous()
 
 
@@ -217,6 +240,7 @@ def pointnet_tables(point_net) -> PointNetTables:
         t.trunk_pack = pack_trunk_weights(*t.trunk_w[1:])
         t.head_pack = pack_head_weights(*t.head_w[:3], t.head_w[4])
     elif dt == torch.float32 and _shapes(t) == KERNEL_SHAPES:
+        t.trunk_pack = pack_trunk_tf32x3(*t.trunk_w[1:])
         t.head_pack = pack_head_tf32x3(*t.head_w[:3], t.head_w[4])
     return t
 
@@ -320,8 +344,8 @@ def _shapes(t: PointNetTables):
 def _check(t: PointNetTables, p: int, name: str, data: typing.Dict[str, torch.Tensor],
            pack: typing.Optional[torch.Tensor]):
     """Raise unless the kernel is built for these tables and P, and the
-    tables carry the weight pack of a tensor-core build (K4 and K5 in bf16,
-    K5 in f32) on the card."""
+    tables carry the kernel's weight pack (every build runs on the tensor
+    cores) on the card."""
     if _shapes(t) != KERNEL_SHAPES or not 1 <= p <= PMAX:
         raise ValueError(
             f"{name} kernel is built for the PPSurf widths (latent 256) and "
@@ -332,11 +356,10 @@ def _check(t: PointNetTables, p: int, name: str, data: typing.Dict[str, torch.Te
     tensors.update(trunk_aff=t.trunk_aff, head_aff=t.head_aff, bqv=t.bqv)
     dtypes = {k: t.dt for k in tensors if k not in ("trunk_aff", "head_aff", "bqv")}
     dtypes.update(trunk_aff=torch.float32, head_aff=torch.float32, bqv=torch.float32)
-    if t.dt == torch.bfloat16 or name == "pointnet_head":
-        if pack is None:
-            raise ValueError(f"{name}: the tables need their weight pack "
-                             "(made by pointnet_tables)")
-        tensors["pack"] = pack
+    if pack is None:
+        raise ValueError(f"{name}: the tables need their weight pack "
+                         "(made by pointnet_tables)")
+    tensors["pack"] = pack
     kernels.check_cuda_args(name, tensors, dtypes)
 
 

@@ -8,7 +8,7 @@ tiles to shared memory as they are and point `wgmma` descriptors at them.
 K3 (`ops/decoder_tail.py`) and K4/K5 (`ops/pointnet_att.py`) lay out
 their weights with these helpers, once per table.
 
-The f32 builds of K3 and K5 multiply as 3xTF32 (`csrc/gmma.cuh`): each
+The f32 builds of K3-K5 multiply as 3xTF32 (`csrc/gmma.cuh`): each
 weight is split into tf32 hi = tf32(w) (round to nearest, ties away from
 zero, 10 mantissa bits) and lo = tf32(w - hi), and a slice of their
 stream holds the hi tile and then the lo tile of the same 64 columns x 32

@@ -9,9 +9,10 @@ with the side's root first on the path), in the order baseline,
 this checkout, this checkout, baseline (N times over), and builds its own
 kernels at first use. A side times, with CUDA events (median of 5 calls
 after a warm-up), the f32 and bf16 builds of K3 (latent 256, k=64), K4
-and K5 (P=50) and the f32 K5 at P=200 on the same seeded inputs at the
-field's production shapes (60 031 points, 50 048 queries, the committed
-weights), and prints one JSON line; the script prints each run and the
+and K5 (P=50), the f32 K4 and K5 at P=200 (the committed weights) and K3
+at latent 32 (k=64, POCO's seeded weights) in both dtypes, on the same
+seeded inputs at the field's production shapes (60 031 points, 50 048
+queries), and prints one JSON line; the script prints each run and the
 medians of each side. Needs one CUDA card.
 """
 from __future__ import annotations
@@ -47,6 +48,7 @@ def worker() -> dict:
     import torch
 
     from ppsurf_tpu_torch.convert.infer_npz import load_infer_npz, load_network
+    from ppsurf_tpu_torch.convert.init import init_variables
     from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail
     from ppsurf_tpu_torch.ops.knn import knn
     from ppsurf_tpu_torch.ops.patches import patch_space
@@ -54,7 +56,7 @@ def worker() -> dict:
         pointnet_head, pointnet_tables, pointnet_trunk, pointnet_trunk_plain, stn_apply,
     )
     from ppsurf_tpu_torch.recon.predict import DEFAULT_WEIGHTS
-    from ppsurf_tpu_torch.train.model import ppsurf_spec
+    from ppsurf_tpu_torch.train.model import poco_spec, ppsurf_spec
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -62,23 +64,27 @@ def worker() -> dict:
     q = pts[torch.randint(0, N_POINTS, (N_QUERIES,), generator=gen, device=dev)]
     q = q + 0.02 * torch.randn(q.shape, generator=gen, device=dev)
     lat = torch.randn(N_POINTS, 256, generator=gen, device=dev)
+    lat32 = torch.randn(N_POINTS, 32, generator=gen, device=dev)
     variables = load_infer_npz(DEFAULT_WEIGHTS)
+    poco_vars = init_variables(poco_spec(), seed=0)
     out = {}
     with torch.inference_mode():
         ids = knn(pts, q, 200)
+        k64 = ids[:, :64].contiguous()
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             net = load_network(ppsurf_spec(dtype=dt), variables, dev)
             tabs = decoder_tables(net.projection, dt)
             lat_dt = lat.to(dt)
-            k64 = ids[:, :64].contiguous()
             out[f"K3 {tag}"] = _cuda_ms(lambda: decoder_tail(lat_dt, pts, q, k64, tabs))
+            tabs32 = decoder_tables(load_network(poco_spec(dtype=dt), poco_vars, dev).projection, dt)
+            lat32_dt = lat32.to(dt)
+            out[f"K3 L=32 {tag}"] = _cuda_ms(lambda: decoder_tail(lat32_dt, pts, q, k64, tabs32))
             pt = pointnet_tables(net.point_net)
             for p in (50, 200) if tag == "f32" else (50,):
                 pp = patch_space(pts[ids[:, :p]], q).to(dt).contiguous()
                 b, pooled = pointnet_trunk_plain(pp, pt)
                 x2 = stn_apply(pooled, b, pt).contiguous()
-                if p == 50:
-                    out[f"K4 {tag}"] = _cuda_ms(lambda: pointnet_trunk(pp, pt))
+                out[f"K4 {tag} P={p}"] = _cuda_ms(lambda: pointnet_trunk(pp, pt))
                 out[f"K5 {tag} P={p}"] = _cuda_ms(lambda: pointnet_head(x2, pt))
                 del pp, b, pooled, x2
     return out

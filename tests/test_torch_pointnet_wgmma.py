@@ -3,8 +3,8 @@
 
 - The bf16 weight packs hold every weight exactly, tile by tile, in the
   swizzled K-major operand layout of `csrc/gmma.cuh`, at the offsets the
-  kernels read; `pointnet_tables` makes them in bf16 (in f32 only K5's
-  3xTF32 pack, `tests/test_torch_tf32x3.py`).
+  kernels read; `pointnet_tables` makes them in bf16 (in f32 the 3xTF32
+  packs of K4 and K5, `tests/test_torch_tf32x3.py`).
 - K3's pack (`ops/decoder_tail.py`) is byte for byte what it was before
   the swizzle helpers moved to `ops/wgmma_layout.py`.
 - A model of the kernels' reductions over the `wgmma` accumulator
@@ -100,8 +100,8 @@ def test_head_pack_holds_the_weights_exactly():
 @pytest.mark.parametrize("dt", [BF16, torch.float32])
 def test_tables_make_the_packs_in_bf16_only(dt):
     t = _tables(dt)
-    if dt == torch.float32:  # the f32 K5 streams its 3xTF32 pack; K4 takes none
-        assert t.trunk_pack is None
+    if dt == torch.float32:  # the f32 K4 and K5 stream their 3xTF32 packs
+        assert torch.equal(t.trunk_pack, pn.pack_trunk_tf32x3(*t.trunk_w[1:]))
         assert torch.equal(t.head_pack, pn.pack_head_tf32x3(*t.head_w[:3], t.head_w[4]))
         return
     assert torch.equal(t.trunk_pack, pn.pack_trunk_weights(*t.trunk_w[1:]))

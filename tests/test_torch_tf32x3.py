@@ -1,4 +1,4 @@
-"""Host side of the f32 K3 and K5 on the tensor cores as 3xTF32
+"""Host side of the f32 K3, K4 and K5 on the tensor cores as 3xTF32
 (`csrc/gmma.cuh`, `ops/wgmma_layout.py`, `ops/decoder_tail.py`,
 `ops/pointnet_att.py`).
 
@@ -13,13 +13,15 @@
   call without its pack is refused before any launch.
 - A model of the kernels' products (the three terms hi x hi, hi x lo,
   lo x hi of each k8 step, each accumulated in f32) run through the
-  plain versions at full width (L=256, 64 rows; P in {50, 200}) on
-  seeded queries meets the smoke's f32 limits against the plain f32
-  versions (max |diff| 1e-4, mean 2e-6, x max(1, max |plain|)); the same
-  model with one term (plain TF32) and with hi x lo dropped misses them,
-  so the limits bite. The committed weights are f16 values, exact in tf32
-  (their lo is zero), so the model runs on them times (1 + 1e-3 seeded
-  noise), full f32 mantissas, as the smoke's f32 kernel checks do.
+  plain versions at full width (K3 at L=256, 64 rows; K4 and K5 at P in
+  {50, 200}) on seeded queries meets the smoke's f32 limits against the
+  plain f32 versions (max |diff| 1e-4, mean 2e-6, x max(1, max |plain|));
+  the same model with one term (plain TF32) and with hi x lo dropped
+  misses them, so the limits bite. The committed weights are f16 values,
+  exact in tf32 (their lo is zero), so the model runs on them times (1 +
+  1e-3 seeded noise), full f32 mantissas, as the smoke's f32 kernel
+  checks do. K=3 products (K4's conv0a, K3's rel rows) stay f32 on the
+  CUDA cores in the kernels and in the model.
 """
 from __future__ import annotations
 
@@ -141,13 +143,26 @@ def test_decoder_tail_pack_holds_hi_and_lo_of_each_weight():
 
 def test_head_pack_holds_hi_and_lo_of_each_weight():
     t = pn.pointnet_tables(_net().point_net)
-    assert t.trunk_pack is None and t.head_pack.numel() * 4 == 54 * 16384
+    assert t.head_pack.numel() * 4 == 54 * 16384
     ws = (*t.head_w[:3], t.head_w[4])
     # a layer's quarters beyond its input width first: conv2 (64 inputs)
     # quarter 1, conv3 (128 inputs) quarters 2 and 3
     quarters = ((0,), (1, 0), (2, 3, 0, 1), (0, 1, 2, 3))
     assert pn.HEAD_QUARTERS == quarters
     for w, (hi, lo) in zip(ws, _unpack(t.head_pack, [tuple(w.shape) for w in ws], quarters)):
+        _check_split(w, hi, lo)
+
+
+def test_trunk_pack_holds_hi_and_lo_of_each_weight():
+    t = pn.pointnet_tables(_net().point_net)
+    assert t.trunk_pack.dtype == F32 and t.trunk_pack.numel() * 4 == 24 * 16384
+    assert torch.equal(t.trunk_pack, pn.pack_trunk_tf32x3(*t.trunk_w[1:]))
+    ws = t.trunk_w[1:]  # conv0b, stn conv1-3; conv0a (K=3) stays on the CUDA cores
+    # stn conv2 (64 inputs) writes its quarter 1 first; stn conv3's output
+    # is never stored, so its quarters come in order
+    quarters = ((0,), (0,), (1, 0), (0, 1, 2, 3))
+    assert pn.TRUNK_QUARTERS == quarters
+    for w, (hi, lo) in zip(ws, _unpack(t.trunk_pack, [tuple(w.shape) for w in ws], quarters)):
         _check_split(w, hi, lo)
 
 
@@ -165,6 +180,10 @@ def test_f32_calls_without_their_pack_are_refused():
     tabs.head_pack = None
     with pytest.raises(ValueError, match="weight pack"):
         pn._check(tabs, 50, "pointnet_head", {}, tabs.head_pack)
+    tabs.trunk_pack = None
+    for p in (50, 200):
+        with pytest.raises(ValueError, match="weight pack"):
+            pn._check(tabs, p, "pointnet_trunk", {}, tabs.trunk_pack)
 
 
 # ---- the products' model against the plain versions ----
@@ -188,7 +207,9 @@ def tf32x3_matmul(x: torch.Tensor, w: torch.Tensor, terms) -> torch.Tensor:
 
 def _model_dense(terms):
     def model(x, kernel, bias, dt):
-        if kernel.shape[1] == 1:  # K5's fc_query: an f32 dot product on the CUDA cores
+        # K5's fc_query (an f32 dot product) and K4's conv0a (K=3) run on
+        # the CUDA cores
+        if kernel.shape[1] == 1 or kernel.shape[0] == 3:
             return dense(x, kernel, bias, dt)
         y = tf32x3_matmul(x, kernel, terms)
         return y if bias is None else y + bias.float()
@@ -259,5 +280,35 @@ def test_k5_product_model_against_the_limits(k5_cases, p, variant, monkeypatch):
     args, ref = k5_cases[p]
     monkeypatch.setattr(pn, "dense", _model_dense(TERMS[variant]))
     err = _errors(pn.pointnet_head_plain(*args), ref)
+    within = err[0] <= LIMITS[0] and err[1] <= LIMITS[1]
+    assert within == (variant == "3xTF32"), (variant, err)
+
+
+@pytest.fixture(scope="module")
+def k4_cases():
+    net = _net()
+    rng = np.random.RandomState(5)
+    t = pn.pointnet_tables(net.point_net)
+    t.trunk_w = tuple(_full_mantissas(w, rng) for w in t.trunk_w)
+    cases = {}
+    for p in (50, 200):
+        c = 200
+        cloud = torch.from_numpy(rng.rand(4000, 3).astype(np.float32) - 0.5)
+        q = torch.from_numpy(rng.rand(c, 3).astype(np.float32) - 0.5)
+        near = torch.cdist(q, cloud).topk(p, largest=False).indices
+        patches = patch_space(cloud[near], q)
+        cases[p] = (patches, t), pn.pointnet_trunk_plain(patches, t)
+    return cases
+
+
+@pytest.mark.parametrize("p", (50, 200))
+@pytest.mark.parametrize("variant", list(TERMS))
+def test_k4_product_model_against_the_limits(k4_cases, p, variant, monkeypatch):
+    args, (b_ref, pooled_ref) = k4_cases[p]
+    monkeypatch.setattr(pn, "dense", _model_dense(TERMS[variant]))
+    b, pooled = pn.pointnet_trunk_plain(*args)
+    out, ref = torch.cat([b.flatten(), pooled.flatten()]), torch.cat([b_ref.flatten(),
+                                                                      pooled_ref.flatten()])
+    err = _errors(out, ref)
     within = err[0] <= LIMITS[0] and err[1] <= LIMITS[1]
     assert within == (variant == "3xTF32"), (variant, err)

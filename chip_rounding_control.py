@@ -12,8 +12,8 @@ products, or a term, guard or choice of W1's arithmetic. It prints
 each run's kernel check lines and exit code. The limits are sound where the
 unchanged run passes and each copy fails the checks of the kernel it
 changes (for the 3xTF32 copies of `mma_steps_tf32x3`, whose products the
-f32 K3 at latent 256, K4 and K5 share, the f32 checks of each must
-fail). `--only`
+f32 K3 at latent 256, K4 and K5 share, the f32 checks of each must fail;
+for those of `mma_regs_tf32x3`, the f32 latent-32 K3's). `--only`
 runs the mutants whose name holds TEXT. Needs one CUDA card; the copies
 live in a temporary directory that is removed at the end.
 """
@@ -30,8 +30,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SMOKE_ARGS = ["--resolution", "33", "--passes", "1", "--refine", "1", "--no-campaign"]
 
 # the f32 checks of the kernels whose products go through
-# `gmma.cuh::mma_steps_tf32x3` (K3 at latent 256, K4, K5)
+# `gmma.cuh::mma_steps_tf32x3` (K3 at latent 256, K4, K5) and of the
+# latent-32 K3, whose register-fed products are `mma_regs_tf32x3`'s
 F32_CHECKS = ("# K3 decoder_tail f32 ", "# K4 pointnet_trunk f32 ", "# K5 pointnet_head f32 ")
+L32_F32_CHECKS = ("# K3 decoder_tail L=32 k=64 f32 ",)
 THREE_TERMS = (
     "#pragma unroll\n"
     "  for (int kk = 0; kk < 2; ++kk) {\n"
@@ -61,6 +63,24 @@ MUTANTS = {
         "ppsurf_tpu_torch/csrc/gmma.cuh",
         "  hi = tf32_rna(x);\n",
         "  hi = __float_as_uint(x) & 0xffffe000u;\n", F32_CHECKS),
+    "K3 latent 32 f32 3xTF32 (register-fed): one TF32 term (hi x hi) only": (
+        "ppsurf_tpu_torch/csrc/gmma.cuh",
+        "#pragma unroll\n"
+        "  for (int g = 0; g < 4; ++g) {\n"
+        "    mma(ah[g], b + N * 128 + 32 * g, g);  // hi x lo\n"
+        "    mma(al[g], b + 32 * g, 1);  // lo x hi\n"
+        "  }\n"
+        "#pragma unroll\n"
+        "  for (int g = 0; g < 4; ++g)\n"
+        "    mma(ah[g], b + 32 * g, 1);  // hi x hi\n",
+        "#pragma unroll\n"
+        "  for (int g = 0; g < 4; ++g)\n"
+        "    mma(ah[g], b + 32 * g, g);  // hi x hi\n",
+        L32_F32_CHECKS),
+    "K3 latent 32 f32 3xTF32 (register-fed): lo x hi dropped": (
+        "ppsurf_tpu_torch/csrc/gmma.cuh",
+        "    mma(al[g], b + 32 * g, 1);  // lo x hi\n",
+        "", L32_F32_CHECKS),
     "K4/K5 bf16 epilogue: dense output not rounded before its bias": (
         "ppsurf_tpu_torch/csrc/pointnet.cu",
         "float2 y = rnd2(acc0, acc1);",
@@ -87,11 +107,11 @@ MUTANTS = {
         "return rnd<bf16>(acc + b);"),
     "K3 latent 32 epilogue: product not rounded before its bias (fc2, fc3, fc_query, fc_value)": (
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
-        "return rnd<bf16>(rnd<bf16>(x) + bias);",
-        "return rnd<bf16>(x + bias);"),
+        "return rnd<T>(rnd<T>(x) + bias);",
+        "return rnd<T>(x + bias);"),
     "K3 latent 32 head-mean attention not rounded": (
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",
-        "return real ? rnd<bf16>(sum / HEADS) : 0.f;",
+        "return real ? rnd<T>(sum / HEADS) : 0.f;",
         "return real ? sum / HEADS : 0.f;"),
     "K3 head-mean attention not rounded": (
         "ppsurf_tpu_torch/csrc/decoder_tail.cu",

@@ -15,9 +15,10 @@ In order, it:
    each bf16 tensor-core kernel (K3 decoder tail at latent 256 and at
    latent 32, K4 PointNet trunk, K5 PointNet head for one tile and, as a
    thread-block cluster, for two to four) and of each f32 3xTF32 kernel
-   (K3 at latent 256, K4, K5) holds HGMMA instructions, ptxas reports 0
-   spill bytes for the bf16 latent-32 K3, K4 and K5 ones, every f32 one
-   (each also with a 0-byte stack frame) and every K2 and T1 kernel; prints the SASS instruction count of each T1 variant's pass
+   (K3 at latent 256 and at latent 32, K4, K5) holds HGMMA instructions,
+   ptxas reports 0 spill bytes for the bf16 latent-32 K3, K4 and K5 ones,
+   every f32 one (each also with a 0-byte stack frame) and every K2 and
+   T1 kernel; prints the SASS instruction count of each T1 variant's pass
    loop;
 3. runs every kernel of the reconstruction path (K1 kNN at k=64 and at
    the refinement's kc=192, K2 candidate selection, K3 decoder tail, K4/K5
@@ -41,9 +42,8 @@ In order, it:
    the tensor cores; the f32 lines are timed likewise, beside their
    bound by both figures (the f32 FMA peak, and 3xTF32: three TF32
    products a product at the TF32 peak) and their products as f32
-   torch.matmul, TF32 off; every f32 check of K3 (latent 256) and K4/K5
-   runs on weights times (1 + 1e-3 seeded noise), whose 3xTF32 lo parts
-   are not zero
+   torch.matmul, TF32 off; every f32 check of K3-K5 runs on weights
+   times (1 + 1e-3 seeded noise), whose 3xTF32 lo parts are not zero
    (the committed weights are f16 values, exact in tf32, so a kernel that
    misread its lo tiles would pass on them); then the builds of the other
    paths, bf16 and f32 under the same limits: K3 at latent 32 (POCO) at k
@@ -51,8 +51,8 @@ In order, it:
    K4/K5 at P in {65, 100, 128, 129, 192, 200, 256} (every cluster size
    of K5, and last tiles of one row), the ones on a path timed beside
    bound, plain version and yardstick (in f32: K3 at latent 32, K4/K5 at
-   P=100 and 200), with the launch shape of the bf16 latent-32 K3 and
-   the cluster K5 (CTAs a cluster, clusters or blocks the card
+   P=100 and 200), with the launch shape of the latent-32 K3 (bf16 and
+   f32) and the cluster K5 (CTAs a cluster, clusters or blocks the card
    holds at once, the weight bytes a launch streams by design) and, for
    the latent-32 K3, the SFU floor of its softmax beside its bound, on
    comment lines; each f32 row of the kernels line names its CUDA kernel
@@ -87,7 +87,11 @@ In order, it:
 8. reconstructs the cloud with POCO (latent 32, k=64, bf16) on seeded
    weights with bench.py's analytic blend as `transform`: the mesh must
    be the blend's sphere, and K1, K3 at latent 32 and K2 must launch;
-   then one POCO f32 chunk on the card against the CPU plain path;
+   then the same in f32 (as `cli rec --trainer.precision 32` runs it):
+   its phase seconds, the blend's sphere again, K3 at latent 32 launched
+   once a field chunk with the f32 dtype code only (no bf16 build, no
+   PPSurf kernel), K1 and K2 launched; then one POCO f32 chunk on the
+   card against the CPU plain path;
 9. reconstructs it with `ppsurf_200nn` (bf16, committed weights; K1 at
    k=200, K4/K5 on four tiles);
 10. reconstructs a 40-point cloud (K3 at k=40, patch P=40) at res 33;
@@ -222,7 +226,7 @@ F32_BUILDS = ("decoder_tail_f32", "decoder_tail_l32_f32", "pointnet_trunk_f32",
               "pointnet_trunk_wide_p200_f32", "pointnet_head_wide_p200_f32")
 # the CUDA kernel each f32 build launches, all 3xTF32 on the tensor cores
 F32_KERNELS = {"decoder_tail": "tf32::decoder_tail_tf32_kernel",
-               "decoder_tail_l32": "narrow::decoder_tail_narrow_kernel (CUDA cores)",
+               "decoder_tail_l32": "narrow_tc::decoder_tail_narrow_tf32_kernel",
                "pointnet_trunk": "tf32::trunk_tf32_kernel",
                "pointnet_head": "tf32::head_tf32_kernel"}
 
@@ -433,7 +437,9 @@ def full_mantissas(t, gen):
 
     import torch
 
-    from ppsurf_tpu_torch.ops.decoder_tail import DecoderTables, pack_tf32x3_weights
+    from ppsurf_tpu_torch.ops.decoder_tail import (
+        DecoderTables, pack_l32_tf32x3, pack_tf32x3_weights,
+    )
     from ppsurf_tpu_torch.ops.pointnet_att import pack_head_tf32x3, pack_trunk_tf32x3
 
     def noisy(w):
@@ -442,7 +448,8 @@ def full_mantissas(t, gen):
 
     if isinstance(t, DecoderTables):
         t = dataclasses.replace(t, w2=noisy(t.w2), w3=noisy(t.w3), wq=noisy(t.wq), wv=noisy(t.wv))
-        t.wpack = pack_tf32x3_weights(t.w2, t.w3, t.wq, t.wv)
+        pack = pack_l32_tf32x3 if t.w2.shape[0] == 32 else pack_tf32x3_weights
+        t.wpack = pack(t.w2, t.w3, t.wq, t.wv)
         return t
     trunk_w = tuple(noisy(w) for w in t.trunk_w)
     head_w = tuple(noisy(w) for w in t.head_w)
@@ -576,6 +583,8 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
         for lat_w, proj, ks in ((32, poco_projection(dt), (1, 33, 50, 63, 64)),
                                 (256, nets[dt].projection, (1, 33, 40, 50, 63))):
             tabs = decoder_tables(proj, dt)
+            if not bf:
+                tabs = full_mantissas(tabs, gen)
             lat = torch.randn(n, lat_w, generator=gen, device=dev).to(dt)
             for k in ks:
                 idk = ids256[:, :k].contiguous()
@@ -596,10 +605,11 @@ def wide_builds(compare, yardstick, results, nets, poco_vars, pts, q, gen, dev) 
                     **kernel_bounds(nb, ops, tag),
                     library_ms=None, shape=f"C={c} k={k} L={lat_w} heads=64 {tag}",
                 )
-                if lat_w == 32 and bf:
-                    res, shp = results[name], launch_shape("ppsurf_decoder_tail_l32_info", c)
+                if lat_w == 32:
+                    res = results[name]
+                    shp = launch_shape("ppsurf_decoder_tail_l32_info", c, int(bf))
                     b2b = cuda_ms(lambda: decoder_tail(lat, pts, q, idk, tabs), batch=20)
-                    print(f"# K3 L=32 bf16 launch: {shp['active']} blocks an SM of "
+                    print(f"# K3 L=32 {tag} launch: {shp['active']} blocks an SM of "
                           f"{shp['grid_blocks'] // shp['active']} SMs ({shp['grid_blocks']} "
                           f"blocks, no cluster); weight bytes a launch streams by design "
                           f"{shp['weight_bytes']} (a count, not a measurement); "
@@ -2020,6 +2030,8 @@ def main() -> int:
                                   ("K5 bf16", "head_wgmma_kernel", True),
                                   ("K5 cluster bf16", "head_cluster_kernel", True),
                                   ("K3 f32 3xTF32", "decoder_tail_tf32_kernel", True),
+                                  ("K3 latent 32 f32 3xTF32", "decoder_tail_narrow_tf32_kernel",
+                                   True),
                                   ("K4 f32 3xTF32", "trunk_tf32_kernel", True),
                                   ("K5 f32 3xTF32", "head_tf32_kernel", True)):
         hgmma = sum(part.count("HGMMA") for part in sass.split("Function : ")
@@ -2665,6 +2677,42 @@ def main() -> int:
             or any(plaunch[k] for k in ("decoder_tail", "pointnet_trunk", "pointnet_head"))):
         fail(f"the POCO reconstruction did not run on its kernels: {plaunch}")
     results["decoder_tail_l32"]["launches"] = plaunch["decoder_tail_l32"]
+    # the POCO reconstruction in f32 (as `cli rec --trainer.precision 32`):
+    # K3 at latent 32 once a field chunk, its f32 build only
+    pspec_f32 = poco_spec(dtype=torch.float32, gen_subsample_manifold_iter=args.passes,
+                          gen_refine_iter=args.refine)
+    poco_f32 = Predictor(pspec_f32, variables=poco_vars, device="cuda", verbose=False)
+    ptimes32 = {}
+    kernels.reset_launches()
+    with chunks_and_dtypes() as seen:
+        t0 = time.perf_counter()
+        pmesh32 = poco_f32.reconstruct_shape(cloud, seed=0, resolution=args.resolution,
+                                             transform=blend, timings=ptimes32)
+        torch.cuda.synchronize()
+        ptotal32 = time.perf_counter() - t0
+    plaunch_e2e32 = dict(kernels.LAUNCHES)
+    if pmesh32 is None or pmesh32.faces.shape[0] == 0 or not np.isfinite(pmesh32.vertices).all():
+        fail("the POCO f32 reconstruction produced no finite mesh")
+    off32 = np.abs(np.linalg.norm(pmesh32.vertices, axis=1) - radius)
+    print(f"# POCO f32 (latent 32, k=64, seeded weights + blend) res {args.resolution}: "
+          f"{ptotal32:.2f} s; phases " + " ".join(f"{k}={v:.2f}s" for k, v in ptimes32.items())
+          + f"; mesh {pmesh32.vertices.shape[0]} vertices {pmesh32.faces.shape[0]} faces (bf16: "
+          f"{pmesh.vertices.shape[0]}), 99th percentile of | |vertex| - {radius:.4f} | "
+          f"{np.percentile(off32, 99):.4f} (band {band:.4f}); field queries "
+          f"{poco_f32.last_evaluator.stat_queries} in {seen['chunks']} chunks; launches "
+          f"{json.dumps({k: v for k, v in plaunch_e2e32.items() if v})}; K3 dtype codes "
+          f"{json.dumps({k: sorted(v) for k, v in seen['dtypes'].items()})}", flush=True)
+    if np.percentile(off32, 99) > band:
+        fail(f"the POCO f32 mesh is not the blend's sphere: 99th percentile of the radial "
+             f"offset {np.percentile(off32, 99)} > {band}")
+    if (plaunch_e2e32["decoder_tail_l32"] != seen["chunks"]
+            or any(plaunch_e2e32[k] == 0 for k in ("knn", "knn_k192", "topk_rows"))
+            or seen["dtypes"] != {"decoder_tail_l32": {0}}):
+        fail(f"the POCO f32 reconstruction did not launch the f32 K3 at latent 32 once a "
+             f"chunk ({seen['chunks']} chunks) and no other K3-K5 build: {plaunch_e2e32}, "
+             f"dtype codes {seen['dtypes']}")
+    results["decoder_tail_l32_f32"]["launches"] = plaunch_e2e32["decoder_tail_l32"]
+    del poco_f32, pmesh32
     # one POCO f32 chunk on the card vs the CPU plain path (K3 at latent 32, f32)
     with torch.inference_mode():
         pspec32 = poco_spec(dtype=torch.float32)
@@ -2684,7 +2732,6 @@ def main() -> int:
         if not (np.isfinite(v_gpu).all() and err <= 1e-3) or not plaunch32["decoder_tail_l32"]:
             fail(f"the POCO f32 chunk on the card disagrees with the CPU plain path or did "
                  f"not launch K3 at latent 32: {err}, {plaunch32}")
-        results["decoder_tail_l32_f32"]["launches"] = plaunch32["decoder_tail_l32"]
         del gpu_poco, cpu_poco, plat
     del poco, pmesh
 

@@ -27,10 +27,12 @@
 // miss the f32 limit (1e-4 x scale) that the f32 field is held to. See
 // `namespace tf32` below.
 //
-// latent 32 (POCO): bf16 (`decoder_tail_narrow_wgmma_kernel`) on the tensor cores,
-// one warpgroup a query, every activation in registers; f32
-// (`decoder_tail_narrow_kernel`) one thread a neighbour row on the
-// CUDA cores. See `namespace narrow_tc` and `namespace narrow` below.
+// latent 32 (POCO): bf16 (`decoder_tail_narrow_wgmma_kernel`) and f32
+// (`decoder_tail_narrow_tf32_kernel`, 3xTF32) on the tensor cores from one
+// body, one warpgroup a query, every activation in registers. See
+// `namespace narrow_tc` below.
+#include <type_traits>
+
 #include "common.cuh"
 #include "gmma.cuh"
 
@@ -550,271 +552,145 @@ cudaError_t launch(const void* latents, const void* pts, const void* queries, co
 
 }  // namespace tf32
 
-// ---- L = 32 (POCO), f32: one thread a neighbour row on the CUDA cores ----
-//
-// Each group of 64 threads takes one query at a time (persistent blocks of
-// four groups, a named barrier per group); thread r holds row r's 32
-// activations in registers and runs every product of its row as f32 FMA
-// with the weights, kept once per block in shared memory as f32, read as
-// broadcast float4. fc_query's 64 logits of a row go to shared memory for
-// `head_attention`; the attention-weighted values are summed over the rows
-// in f32 by one thread a column. f32 only: the bf16 build is
-// `decoder_tail_narrow_wgmma_kernel`.
-namespace narrow {
-
-constexpr int LAT = 32;
-constexpr int GROUPS = 4;                 // queries in flight a block
-constexpr int THREADS_NARROW = GROUPS * K;   // one thread a neighbour row
-// f32 weights: w1 (3 x 32), w2, w3 (32 x 32), wq (32 x 64), wv (32 x 32),
-// then the biases b2, b3 (32), bq (64), bv (32)
-constexpr int W1 = 0, W2 = W1 + 3 * LAT, W3 = W2 + LAT * LAT, WQ = W3 + LAT * LAT,
-              WV = WQ + LAT * HEADS, B2 = WV + LAT * LAT, B3 = B2 + LAT, BQ = B3 + LAT,
-              BV = BQ + HEADS, WFLOATS = BV + LAT;
-// a group's floats: logits (64 x 65, later the weighted values), head
-// max, head sum, att
-constexpr int GFLOATS = K * (HEADS + 1) + 3 * K;
-constexpr size_t SMEM = sizeof(float) * (WFLOATS + GROUPS * GFLOATS);
-
-// out[0:N] = in[0:32] @ W[32][N] (W row-major, f32 in shared memory), each
-// output accumulated in f32 over the inputs in order
-template <int N>
-__device__ __forceinline__ void row_matmul(const float (&in)[LAT], const float* w,
-                                           float (&out)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) out[j] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < LAT; ++kk) {
-    const float4* row = reinterpret_cast<const float4*>(w + kk * N);
-#pragma unroll
-    for (int j4 = 0; j4 < N / 4; ++j4) {
-      const float4 v = row[j4];
-      out[4 * j4] = fmaf(in[kk], v.x, out[4 * j4]);
-      out[4 * j4 + 1] = fmaf(in[kk], v.y, out[4 * j4 + 1]);
-      out[4 * j4 + 2] = fmaf(in[kk], v.z, out[4 * j4 + 2]);
-      out[4 * j4 + 3] = fmaf(in[kk], v.w, out[4 * j4 + 3]);
-    }
-  }
-}
-
-// a dense layer's epilogue (`decoder_pallas.py:22-26`): the product plus
-// the bias; relu optional
-__device__ __forceinline__ void dense_epilogue(float (&acc)[LAT], const float* b, bool relu) {
-#pragma unroll
-  for (int j = 0; j < LAT; ++j) {
-    const float y = acc[j] + b[j];
-    acc[j] = relu ? fmaxf(y, 0.f) : y;
-  }
-}
-
-__device__ __forceinline__ void load_row(const float* __restrict__ src, float (&x)[LAT]) {
-#pragma unroll
-  for (int u = 0; u < LAT / 4; ++u) {
-    const float4 v = reinterpret_cast<const float4*>(src)[u];
-    x[4 * u] = v.x;
-    x[4 * u + 1] = v.y;
-    x[4 * u + 2] = v.z;
-    x[4 * u + 3] = v.w;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS_NARROW)
-decoder_tail_narrow_kernel(const float* __restrict__ latents, const float* __restrict__ pts,
-                           const float* __restrict__ queries,
-                           const int64_t* __restrict__ ids, const float* __restrict__ w1,
-                           const float* __restrict__ w2, const float* __restrict__ b2,
-                           const float* __restrict__ w3, const float* __restrict__ b3,
-                           const float* __restrict__ wq, const float* __restrict__ bq,
-                           const float* __restrict__ wv, const float* __restrict__ bv,
-                           float* __restrict__ out, int c, int kn) {
-  extern __shared__ __align__(16) float fsm[];
-  float* w = fsm;
-  for (int i = threadIdx.x; i < WFLOATS; i += THREADS_NARROW) {
-    float v;
-    if (i < W2) v = w1[i - W1];
-    else if (i < W3) v = w2[i - W2];
-    else if (i < WQ) v = w3[i - W3];
-    else if (i < WV) v = wq[i - WQ];
-    else if (i < B2) v = wv[i - WV];
-    else if (i < B3) v = b2[i - B2];
-    else if (i < BQ) v = b3[i - B3];
-    else if (i < BV) v = bq[i - BQ];
-    else v = bv[i - BV];
-    w[i] = v;
-  }
-  __syncthreads();
-
-  const int g = threadIdx.x / K;
-  const int r = threadIdx.x % K;
-  float* logits = fsm + WFLOATS + g * GFLOATS;
-  float* hmax = logits + K * (HEADS + 1);
-  float* hsum = hmax + K;
-  float* att = hsum + K;
-  auto sync = [g] { ppsurf::gmma::named_barrier(1 + g, K); };
-
-#pragma unroll 1
-  for (int cq = blockIdx.x * GROUPS + g; cq < c; cq += gridDim.x * GROUPS) {
-    // h = relu(x + rnd(rel @ W1)); rows past kn repeat neighbour 0
-    const int j = static_cast<int>(ids[static_cast<int64_t>(cq) * kn + (r < kn ? r : 0)]);
-    float rel[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) rel[d] = __fsub_rn(queries[3 * cq + d], pts[3 * j + d]);
-    float h[LAT];
-    load_row(latents + static_cast<int64_t>(j) * LAT, h);
-#pragma unroll
-    for (int col = 0; col < LAT; ++col) {
-      const float rw = fmaf(rel[2], w[W1 + 2 * LAT + col],
-                            fmaf(rel[1], w[W1 + LAT + col], rel[0] * w[W1 + col]));
-      h[col] = fmaxf(h[col] + rw, 0.f);
-    }
-
-    // fc2, fc3 (+relu)
-    float y[LAT];
-    row_matmul<LAT>(h, w + W2, y);
-    dense_epilogue(y, w + B2, true);
-    row_matmul<LAT>(y, w + W3, h);
-    dense_epilogue(h, w + B3, true);
-
-    // fc_query -> this row's 64 head logits
-    {
-      float q[HEADS];
-      row_matmul<HEADS>(h, w + WQ, q);
-#pragma unroll
-      for (int hh = 0; hh < HEADS; ++hh)
-        logits[r * (HEADS + 1) + hh] = q[hh] + w[BQ + hh];
-    }
-    sync();
-    head_attention<float>(logits, hmax, hsum, att, r, kn, sync);
-
-    // fc_value, weighted by att; the rows summed in f32 by column
-    row_matmul<LAT>(h, w + WV, y);
-    dense_epilogue(y, w + BV, false);
-    const float a = att[r];
-#pragma unroll
-    for (int col = 0; col < LAT; ++col) logits[r * (LAT + 1) + col] = a * y[col];
-    sync();
-    if (r < LAT) {
-      float s = 0.f;
-      for (int rr = 0; rr < K; ++rr) s += logits[rr * (LAT + 1) + r];
-      out[static_cast<int64_t>(cq) * LAT + r] = s;
-    }
-    sync();
-  }
-}
-
-cudaError_t launch(const void* latents, const void* pts, const void* queries,
-                   const void* ids, const void* w1, const void* w2, const void* b2,
-                   const void* w3, const void* b3, const void* wq, const void* bq,
-                   const void* wv, const void* bv, void* out, int c, int kn,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(decoder_tail_narrow_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(SMEM));
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, decoder_tail_narrow_kernel, THREADS_NARROW, SMEM)) != cudaSuccess)
-    return err;
-  const int blocks = min((c + GROUPS - 1) / GROUPS, max(per_sm, 1) * sms);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  decoder_tail_narrow_kernel<<<blocks, THREADS_NARROW, SMEM, stream>>>(
-      f(latents), f(pts), f(queries), static_cast<const int64_t*>(ids), f(w1), f(w2),
-      f(b2), f(w3), f(b3), f(wq), f(bq), f(wv), f(bv), static_cast<float*>(out), c, kn);
-  return cudaGetLastError();
-}
-
-}  // namespace narrow
-
-// ---- L = 32 (POCO), bf16, on the tensor cores ----
+// ---- L = 32 (POCO) on the tensor cores, bf16 and f32 ----
 //
 // One warpgroup owns one query: its 64 neighbour rows are the m64 tile of
-// every product. fc2, fc3 and fc_value are `wgmma` m64n32k16 products and
-// fc_query m64n64k16, each over K=32 (two k16 steps) with A in registers
-// (the RS form: a product's rounded output fragment is the next one's A
-// operand, `gmma.cuh`), so no activation is stored. The weights (20 KB in
-// the operand layout, `ops/decoder_tail.py::pack_l32_weights`, plus W1's
-// rel rows and the biases in f32) are loaded once per block and stay in
-// shared memory. A K=32 operand keeps the 128-byte-swizzled layout of the
-// other kernels with its rows half used (inputs 32-63 of a tile are zero
-// and never multiplied): only the two k16 steps of real inputs are issued.
-// h1 = relu(x + rnd(rel @ W1)) runs on the CUDA cores straight into the
-// A fragment; the next query's 64 gathered latent rows (4 KB), their
-// points and the query are copied with cp.async into second buffers while
-// the current query computes. The per-head softmax runs on the fc_query
-// fragments of all 128 threads: each exponential once, column max and sum
-// over the 8 row lanes by a reduce-scatter of shuffles and over the 4
-// warps through shared memory, each row's mean over heads by a quad
-// shuffle. Persistent blocks of WGS warpgroups, as many blocks an SM as
-// fit (3 at its 80 registers).
+// every product. fc2, fc3 and fc_value are m64n32 products and fc_query
+// m64n64, each over K=32 with A in registers (the RS form: a product's
+// output fragment, rounded and split where the build needs it, is the
+// next one's A operand, `gmma.cuh`), so no activation is stored. The
+// weights (the pack, plus W1's rel rows and the biases in f32) are loaded
+// once per block and stay in shared memory. h1 = relu(x + rnd(rel @ W1))
+// runs on the CUDA cores straight into the A fragment; the next query's 64
+// gathered latent rows (4 KB in bf16, 8 KB in f32), their points and the
+// query are copied with cp.async into second buffers while the current
+// query computes. The per-head softmax runs on the fc_query fragments of
+// all 128 threads: each exponential once, column max and sum over the 8
+// row lanes by a reduce-scatter of shuffles and over the 4 warps through
+// shared memory, each row's mean over heads by a quad shuffle. Persistent
+// blocks of WGS warpgroups, as many blocks an SM as fit. One body serves
+// both dtypes (`narrow_body`); `Build<T>` holds what differs:
+//   bf16 (`decoder_tail_narrow_wgmma_kernel`): the 20 KB pack
+//     (`ops/decoder_tail.py::pack_l32_weights`), each weight's transpose
+//     with its K of 32 padded to 64 (only the two k16 steps of real inputs
+//     are issued); A as bf16 pairs; `wgmma` m64nNk16. 3 blocks an SM at
+//     its 80 registers.
+//   f32 (`decoder_tail_narrow_tf32_kernel`): every product as 3xTF32
+//     (`gmma.cuh::mma_regs_tf32x3`: each A value split into tf32 hi and lo
+//     in registers, 12 `wgmma` m64nNk8 tf32 products over the four k8
+//     steps into one f32 accumulator); the 40 KB pack
+//     (`ops/decoder_tail.py::pack_l32_tf32x3`) holds the tf32 hi and lo
+//     tiles of W2, W3, Wv (32 x 32) and Wq (64 x 32), inputs in
+//     `TF32_K_ORDER`. The rounding steps are the identity. 2 blocks an SM
+//     (shared memory), up to 128 registers.
 //
 // What bounds it: not its products (5 216 multiply-adds a row, 33 GFLOP
-// at C=50 048: 0.034 ms on the tensor cores) but the softmax's 4 096
-// exponentials and 4 096 divisions a query on the SFU, 16 a clock an SM:
-// about 0.1 ms at C=50 048. It reads about 9x that: the instructions
-// around them (roundings, reductions) and their latency at 6 warpgroups
-// an SM.
+// at C=50 048: 0.034 ms on the bf16 tensor cores, 0.20 ms as 3xTF32) but
+// the softmax's 4 096 exponentials and 4 096 divisions a query on the SFU,
+// 16 a clock an SM: about 0.1 ms at C=50 048. The bf16 build reads about
+// 9x that: the instructions around them (roundings, reductions) and their
+// latency at 6 warpgroups an SM.
 namespace narrow_tc {
 
 constexpr int LAT = 32;
 constexpr int WGS = 2;  // warpgroups a block, each on its own queries
 constexpr int THREADS_L32 = WGS * WG_THREADS;
-// the pack: W2, W3, Wv as (32 x 64) tiles, Wq as one (64 x 64) tile, each
-// weight's transpose with its K of 32 padded to 64
-constexpr int W2_AT = 0, W3_AT = 4096, WQ_AT = 8192, WV_AT = 16384, PACK = 20480;
 // f32 in shared memory: W1's three rel rows, then b2, b3, bv, bq
 constexpr int F_B2 = 3 * LAT, F_B3 = F_B2 + LAT, F_BV = F_B3 + LAT, F_BQ = F_BV + LAT,
               FLOATS = F_BQ + HEADS;
-// a gathered latent row (64 bytes) is stored 80 bytes apart, so that the
-// 32 lanes' fragment reads (8 rows x 4 column pairs) hit 32 banks
-constexpr int ROW_BYTES = 80;
-constexpr int BUF = K * ROW_BYTES;
-// a warpgroup's: two row buffers, then per-warp column maxima and sums of
-// the 64 heads, two queries' per-warp partial outputs, two buffers of the
-// rows' points and of the query
-constexpr int WG_BYTES = 2 * BUF + (2 * 4 * HEADS + 2 * 4 * LAT + 2 * 3 * K + 2 * 4) * 4;
-constexpr size_t SMEM = 1024 + PACK + FLOATS * 4 + WGS * WG_BYTES;
 
 using gm::cp_async16;
 using gm::cp_async4;
 using gm::cp_async_commit;
 using gm::cp_async_wait_all;
 
+template <typename T> struct Build;
+
+template <> struct Build<bf16> {
+  // the pack: W2, W3, Wv as (32 x 64) tiles, Wq as one (64 x 64) tile
+  static constexpr int W2_AT = 0, W3_AT = 4096, WQ_AT = 8192, WV_AT = 16384, PACK = 20480;
+  // the A operand of two k16 steps: a (64 x 32) fragment of values as
+  // bf16 pairs
+  struct Operand {
+    uint32_t a[8];
+  };
+  static __device__ __forceinline__ void set(Operand& op, const float (&v)[16]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) op.a[i] = gm::pack_bf16x2(v[2 * i], v[2 * i + 1]);
+  }
+  // d (64 x N) = A (64 x 32, registers) @ the (32 x N) weight tile at b
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], Operand& op, uint32_t b) {
+    static_assert(N == 32 || N == 64, "m64n32k16 or m64n64k16");
+    gm::fence_operand(d);
+    gm::fence_operand(op.a);
+    gm::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if constexpr (N == 32)
+        gm::wgmma_m64n32k16_rs(d, op.a + 4 * kk, gm::desc_sw128(b + 32 * kk), kk);
+      else
+        gm::wgmma_m64n64k16_rs(d, op.a + 4 * kk, gm::desc_sw128(b + 32 * kk), kk);
+    }
+    gm::wgmma_commit();
+    gm::wgmma_wait<0>();
+    gm::fence_operand(d);
+  }
+};
+
+template <> struct Build<float> {
+  // the pack: the hi tile, then the lo tile, of W2, W3 (32 x 32: 4 KB
+  // each), Wq (64 x 32: 8 KB each) and Wv
+  static constexpr int W2_AT = 0, W3_AT = 8192, WQ_AT = 16384, WV_AT = 32768, PACK = 40960;
+  // the A operand: the f32 values of a (64 x 32) fragment, split into tf32
+  // hi and lo by the product
+  struct Operand {
+    float v[16];
+  };
+  static __device__ __forceinline__ void set(Operand& op, const float (&v)[16]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) op.v[i] = v[i];
+  }
+  template <int N>
+  static __device__ __forceinline__ void mma(float (&d)[N / 2], Operand& op, uint32_t b) {
+    gm::mma_regs_tf32x3<N>(d, op.v, b);
+  }
+};
+
+// a gathered latent row is stored 16 bytes longer than it is (80 bytes in
+// bf16, 144 in f32), so that the 32 lanes' fragment reads (8 rows x 4
+// column pairs) take the fewest wavefronts
+template <typename T>
+__host__ __device__ constexpr int row_bytes() {
+  return LAT * static_cast<int>(sizeof(T)) + 16;
+}
+// a warpgroup's: two row buffers, then per-warp column maxima and sums of
+// the 64 heads, two queries' per-warp partial outputs, two buffers of the
+// rows' points and of the query
+template <typename T>
+__host__ __device__ constexpr int wg_bytes() {
+  return 2 * K * row_bytes<T>() + (2 * 4 * HEADS + 2 * 4 * LAT + 2 * 3 * K + 2 * 4) * 4;
+}
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return 1024 + Build<T>::PACK + FLOATS * 4 + WGS * wg_bytes<T>();
+}
+
 __device__ __forceinline__ float2 ld_f2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
 // a dense layer's epilogue (`decoder_pallas.py:22-26`): the product
-// rounds to bf16, then its sum with the bias
+// rounds to T, then its sum with the bias
+template <typename T>
 __device__ __forceinline__ float l32_dense(float x, float bias) {
-  return rnd<bf16>(rnd<bf16>(x) + bias);
-}
-
-// the A fragments of two k16 steps from a (64 x 32) fragment of values
-__device__ __forceinline__ void to_a(const float (&v)[16], uint32_t (&a)[8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) a[i] = gm::pack_bf16x2(v[2 * i], v[2 * i + 1]);
-}
-
-// d (64 x N) = A (64 x 32, registers) @ the (32 x N) weight tile at b
-template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2], uint32_t (&a)[8], uint32_t b) {
-  static_assert(N == 32 || N == 64, "m64n32k16 or m64n64k16");
-  gm::fence_operand(d);
-  gm::fence_operand(a);
-  gm::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    if constexpr (N == 32)
-      gm::wgmma_m64n32k16_rs(d, a + 4 * kk, gm::desc_sw128(b + 32 * kk), kk);
-    else
-      gm::wgmma_m64n64k16_rs(d, a + 4 * kk, gm::desc_sw128(b + 32 * kk), kk);
-  }
-  gm::wgmma_commit();
-  gm::wgmma_wait<0>();
-  gm::fence_operand(d);
+  return rnd<T>(rnd<T>(x) + bias);
 }
 
 template <typename Op>
@@ -866,20 +742,26 @@ __device__ __forceinline__ float2 warps_reduce(const float* at, Op op) {
                      op(op(op(v[0].y, v[1].y), v[2].y), v[3].y));
 }
 
-__global__ void __launch_bounds__(THREADS_L32, 3)
-decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* __restrict__ pts,
-                        const float* __restrict__ queries, const int64_t* __restrict__ ids,
-                        const bf16* __restrict__ w1, const float* __restrict__ b2,
-                        const float* __restrict__ b3, const float* __restrict__ bq,
-                        const float* __restrict__ bv, const unsigned char* __restrict__ wpack,
-                        bf16* __restrict__ out, int c, int kn) {
-  extern __shared__ unsigned char smem_raw[];
+template <typename T>
+__device__ __forceinline__ void narrow_body(unsigned char* smem_raw, const T* __restrict__ latents,
+                                            const float* __restrict__ pts,
+                                            const float* __restrict__ queries,
+                                            const int64_t* __restrict__ ids,
+                                            const T* __restrict__ w1, const float* __restrict__ b2,
+                                            const float* __restrict__ b3,
+                                            const float* __restrict__ bq,
+                                            const float* __restrict__ bv,
+                                            const unsigned char* __restrict__ wpack,
+                                            T* __restrict__ out, int c, int kn) {
+  using B = Build<T>;
+  constexpr int ROW_BYTES = row_bytes<T>();
+  constexpr int BUF = K * ROW_BYTES;
   unsigned char* wts = gm::align1024(smem_raw);
-  float* fw = reinterpret_cast<float*>(wts + PACK);
-  for (int i = threadIdx.x; i < PACK / 16; i += THREADS_L32)
+  float* fw = reinterpret_cast<float*>(wts + B::PACK);
+  for (int i = threadIdx.x; i < B::PACK / 16; i += THREADS_L32)
     reinterpret_cast<uint4*>(wts)[i] = reinterpret_cast<const uint4*>(wpack)[i];
   for (int i = threadIdx.x; i < FLOATS; i += THREADS_L32)
-    fw[i] = i < F_B2 ? __bfloat162float(w1[i])
+    fw[i] = i < F_B2 ? ppsurf::Num<T>::to_f(w1[i])
           : i < F_B3 ? b2[i - F_B2]
           : i < F_BV ? b3[i - F_B3]
           : i < F_BQ ? bv[i - F_BV] : bq[i - F_BQ];
@@ -892,7 +774,7 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
   const int t = threadIdx.x % WG_THREADS;
   const int w = t >> 5;
   const int l = t & 31;
-  unsigned char* rows = reinterpret_cast<unsigned char*>(fw + FLOATS) + wg * WG_BYTES;
+  unsigned char* rows = reinterpret_cast<unsigned char*>(fw + FLOATS) + wg * wg_bytes<T>();
   float* colmax = reinterpret_cast<float*>(rows + 2 * BUF);  // [4 warps][64 heads]
   float* colsum = colmax + 4 * HEADS;
   float* outpart = colsum + 4 * HEADS;  // [2 queries][4 warps][32 columns]
@@ -904,21 +786,24 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
   const float ninf = -__int_as_float(0x7f800000);
 
   // Thread t stages row t / 2 of a query (rows past kn repeat neighbour
-  // 0) by cp.async: the 32 bytes at column 16 (t % 2) of its gathered
-  // latent row and (even t) its point; thread 1 the query. The pipeline is
-  // three queries deep: the ids of query i + 2 load while query i
-  // computes, then give the copies of query i + 1.
+  // 0) by cp.async: the half of its gathered latent row from column 16 (t
+  // % 2) and (even t) its point; thread 1 the query. The pipeline is three
+  // queries deep: the ids of query i + 2 load while query i computes, then
+  // give the copies of query i + 1.
   float* ptsb = outpart + 2 * 4 * LAT;  // [2 buffers][64 rows][3]
   float* qb = ptsb + 2 * 3 * K;         // [2 buffers][4]
   const int r = t >> 1;
+  constexpr int HALF = LAT / 2 * static_cast<int>(sizeof(T));  // bytes of half a row
   auto row_id = [&](int q) {
     return static_cast<int>(ids[static_cast<int64_t>(q) * kn + (r < kn ? r : 0)]);
   };
   auto copy_row = [&](int j, int q, int buf) {
-    const bf16* src = latents + static_cast<int64_t>(j) * LAT + 16 * (t & 1);
-    unsigned char* dst = rows + buf * BUF + r * ROW_BYTES + 32 * (t & 1);
-    cp_async16(dst, src);
-    cp_async16(dst + 16, src + 8);
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(latents + static_cast<int64_t>(j) * LAT) +
+        HALF * (t & 1);
+    unsigned char* dst = rows + buf * BUF + r * ROW_BYTES + HALF * (t & 1);
+#pragma unroll
+    for (int i = 0; i < HALF / 16; ++i) cp_async16(dst + 16 * i, src + 16 * i);
     if (!(t & 1)) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) cp_async4(ptsb + buf * 3 * K + 3 * r + d, pts + 3 * j + d);
@@ -934,7 +819,7 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
     if (at >= 0 && t < LAT) {
       const float* o = outpart + buf * 4 * LAT + t;
       out[static_cast<int64_t>(at) * LAT + t] =
-          __float2bfloat16_rn(o[0] + o[LAT] + o[2 * LAT] + o[3 * LAT]);
+          ppsurf::Num<T>::from_f(o[0] + o[LAT] + o[2 * LAT] + o[3 * LAT]);
     }
   };
   int cq = blockIdx.x * WGS + wg;
@@ -956,7 +841,7 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
 
     // h1 = relu(x + rnd(rel @ W1)) of rows r0, r0 + 8 (value 4j + 2 rs + e:
     // row r0 + 8 rs, column 8j + cl + e), W1's three rows in f32
-    uint32_t a[8];
+    typename B::Operand a;
     const bool real0 = r0 < kn, real1 = r0 + 8 < kn;
     {
       float h[16];
@@ -966,53 +851,53 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
         const float* pr = ptsb + buf * 3 * K + 3 * (r0 + 8 * rs);
         float rr[3];  // rel = rnd(query - point)
 #pragma unroll
-        for (int d = 0; d < 3; ++d) rr[d] = rnd<bf16>(__fsub_rn(qb[4 * buf + d], pr[d]));
+        for (int d = 0; d < 3; ++d) rr[d] = rnd<T>(__fsub_rn(qb[4 * buf + d], pr[d]));
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int col = 8 * jj + cl;
-          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              xb + (r0 + 8 * rs) * ROW_BYTES + 2 * col));
+          const float2 x =
+              ld_pair(reinterpret_cast<const T*>(xb + (r0 + 8 * rs) * ROW_BYTES) + col);
           const float2 wa = ld_f2(fw + col), wb = ld_f2(fw + LAT + col),
                        wc = ld_f2(fw + 2 * LAT + col);
-          const float rw0 = rnd<bf16>(fmaf(rr[2], wc.x, fmaf(rr[1], wb.x, rr[0] * wa.x)));
-          const float rw1 = rnd<bf16>(fmaf(rr[2], wc.y, fmaf(rr[1], wb.y, rr[0] * wa.y)));
-          h[4 * jj + 2 * rs] = fmaxf(rnd<bf16>(x.x + rw0), 0.f);
-          h[4 * jj + 2 * rs + 1] = fmaxf(rnd<bf16>(x.y + rw1), 0.f);
+          const float rw0 = rnd<T>(fmaf(rr[2], wc.x, fmaf(rr[1], wb.x, rr[0] * wa.x)));
+          const float rw1 = rnd<T>(fmaf(rr[2], wc.y, fmaf(rr[1], wb.y, rr[0] * wa.y)));
+          h[4 * jj + 2 * rs] = fmaxf(rnd<T>(x.x + rw0), 0.f);
+          h[4 * jj + 2 * rs + 1] = fmaxf(rnd<T>(x.y + rw1), 0.f);
         }
       }
-      to_a(h, a);
+      B::set(a, h);
     }
 
     // fc2, fc3 (+relu): each output fragment is the next product's A
 #pragma unroll 1
     for (int layer = 0; layer < 2; ++layer) {
       float acc[16];
-      mma_rs<32>(acc, a, w_addr + (layer ? W3_AT : W2_AT));
+      B::template mma<32>(acc, a, w_addr + (layer ? B::W3_AT : B::W2_AT));
       const float* bias = fw + (layer ? F_B3 : F_B2);
 #pragma unroll
       for (int i = 0; i < 16; i += 2) {
         const float2 b = ld_f2(bias + 8 * (i >> 2) + cl);
-        acc[i] = fmaxf(l32_dense(acc[i], b.x), 0.f);
-        acc[i + 1] = fmaxf(l32_dense(acc[i + 1], b.y), 0.f);
+        acc[i] = fmaxf(l32_dense<T>(acc[i], b.x), 0.f);
+        acc[i + 1] = fmaxf(l32_dense<T>(acc[i + 1], b.y), 0.f);
       }
-      to_a(acc, a);
+      B::set(a, acc);
     }
 
     // fc_query -> the 64 head logits of rows r0, r0 + 8 (value 4j + 2 rs +
     // e: head 8j + cl + e), -inf past kn
     float q[32];
-    mma_rs<64>(q, a, w_addr + WQ_AT);
+    B::template mma<64>(q, a, w_addr + B::WQ_AT);
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const bool real = (i & 2) ? real1 : real0;
       const float2 b = ld_f2(fw + F_BQ + 8 * (i >> 2) + cl);
-      q[i] = real ? l32_dense(q[i], b.x) : ninf;
-      q[i + 1] = real ? l32_dense(q[i + 1], b.y) : ninf;
+      q[i] = real ? l32_dense<T>(q[i], b.x) : ninf;
+      q[i + 1] = real ? l32_dense<T>(q[i + 1], b.y) : ninf;
     }
 
     // per-head softmax over the 64 rows: the column max, then each
     // exponential once (kept in q), the column sum; every step rounds to
-    // bf16, the sum accumulates in f32
+    // T, the sum accumulates in f32
     auto fmax_ = [](float x, float y) { return fmaxf(x, y); };
     auto add_ = [](float x, float y) { return x + y; };
     {
@@ -1032,8 +917,8 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float me = e ? m.y : m.x;
-          q[i + e] = real0 ? rnd<bf16>(expf(rnd<bf16>(q[i + e] - me))) : 0.f;
-          q[i + 2 + e] = real1 ? rnd<bf16>(expf(rnd<bf16>(q[i + 2 + e] - me))) : 0.f;
+          q[i + e] = real0 ? rnd<T>(expf(rnd<T>(q[i + e] - me))) : 0.f;
+          q[i + 2 + e] = real1 ? rnd<T>(expf(rnd<T>(q[i + 2 + e] - me))) : 0.f;
         }
         sums[i / 4] = make_float2(q[i] + q[i + 2], q[i + 1] + q[i + 3]);
       }
@@ -1050,9 +935,9 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
       const float2 s = warps_reduce(colsum + 2 * i + cl, add_);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float se = rnd<bf16>(e ? s.y : s.x);
-        att0 += rnd<bf16>(q[i + e] / se);
-        att1 += rnd<bf16>(q[i + 2 + e] / se);
+        const float se = rnd<T>(e ? s.y : s.x);
+        att0 += rnd<T>(q[i + e] / se);
+        att1 += rnd<T>(q[i + 2 + e] / se);
       }
     }
     att0 += __shfl_xor_sync(0xffffffffu, att0, 1);
@@ -1060,7 +945,7 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
     att1 += __shfl_xor_sync(0xffffffffu, att1, 1);
     att1 += __shfl_xor_sync(0xffffffffu, att1, 2);
     auto head_mean = [](float sum, bool real) {
-      return real ? rnd<bf16>(sum / HEADS) : 0.f;
+      return real ? rnd<T>(sum / HEADS) : 0.f;
     };
     const float a0 = head_mean(att0, real0), a1 = head_mean(att1, real1);
 
@@ -1069,15 +954,15 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
     // query's first barrier) the 4 warps
     {
       float v[16];
-      mma_rs<32>(v, a, w_addr + WV_AT);
+      B::template mma<32>(v, a, w_addr + B::WV_AT);
       float2 s[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float2 b = ld_f2(fw + F_BV + 8 * j + cl);
-        s[j].x = __fadd_rn(__fmul_rn(a0, l32_dense(v[4 * j], b.x)),
-                           __fmul_rn(a1, l32_dense(v[4 * j + 2], b.x)));
-        s[j].y = __fadd_rn(__fmul_rn(a0, l32_dense(v[4 * j + 1], b.y)),
-                           __fmul_rn(a1, l32_dense(v[4 * j + 3], b.y)));
+        s[j].x = __fadd_rn(__fmul_rn(a0, l32_dense<T>(v[4 * j], b.x)),
+                           __fmul_rn(a1, l32_dense<T>(v[4 * j + 2], b.x)));
+        s[j].y = __fadd_rn(__fmul_rn(a0, l32_dense<T>(v[4 * j + 1], b.y)),
+                           __fmul_rn(a1, l32_dense<T>(v[4 * j + 3], b.y)));
       }
       const float2 sum = rows_scatter4(s, l, add_);
       if (!(l & 4))
@@ -1088,23 +973,55 @@ decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* 
   store_out(cq - step, (((cq - blockIdx.x * WGS - wg) / step) & 1) ^ 1);
 }
 
+__global__ void __launch_bounds__(THREADS_L32, 3)
+decoder_tail_narrow_wgmma_kernel(const bf16* __restrict__ latents, const float* __restrict__ pts,
+                                 const float* __restrict__ queries,
+                                 const int64_t* __restrict__ ids, const bf16* __restrict__ w1,
+                                 const float* __restrict__ b2, const float* __restrict__ b3,
+                                 const float* __restrict__ bq, const float* __restrict__ bv,
+                                 const unsigned char* __restrict__ wpack, bf16* __restrict__ out,
+                                 int c, int kn) {
+  extern __shared__ unsigned char smem_raw[];
+  narrow_body<bf16>(smem_raw, latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, kn);
+}
+
+__global__ void __launch_bounds__(THREADS_L32, 2)
+decoder_tail_narrow_tf32_kernel(const float* __restrict__ latents, const float* __restrict__ pts,
+                                const float* __restrict__ queries,
+                                const int64_t* __restrict__ ids, const float* __restrict__ w1,
+                                const float* __restrict__ b2, const float* __restrict__ b3,
+                                const float* __restrict__ bq, const float* __restrict__ bv,
+                                const unsigned char* __restrict__ wpack, float* __restrict__ out,
+                                int c, int kn) {
+  extern __shared__ unsigned char smem_raw[];
+  narrow_body<float>(smem_raw, latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, kn);
+}
+
+template <typename T>
+auto kernel_of() {
+  if constexpr (std::is_same_v<T, bf16>)
+    return decoder_tail_narrow_wgmma_kernel;
+  else
+    return decoder_tail_narrow_tf32_kernel;
+}
+
 // blocks an SM and the grid of a call over c queries; the kernel's
 // attributes and occupancy are set and read once per device
+template <typename T>
 cudaError_t grid(int c, int* per_sm, int* blocks) {
   static int cached_device = -1, cached_per_sm = 0, cached_sms = 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device != cached_device) {
-    if ((err = cudaFuncSetAttribute(decoder_tail_narrow_wgmma_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    static_cast<int>(SMEM))) != cudaSuccess)
+    if ((err = cudaFuncSetAttribute(kernel_of<T>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem_bytes<T>()))) != cudaSuccess)
       return err;
     if ((err = cudaDeviceGetAttribute(&cached_sms, cudaDevAttrMultiProcessorCount, device)) !=
         cudaSuccess)
       return err;
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &cached_per_sm, decoder_tail_narrow_wgmma_kernel, THREADS_L32, SMEM)) != cudaSuccess)
+             &cached_per_sm, kernel_of<T>(), THREADS_L32, smem_bytes<T>())) != cudaSuccess)
       return err;
     cached_device = device;
   }
@@ -1113,19 +1030,29 @@ cudaError_t grid(int c, int* per_sm, int* blocks) {
   return cudaSuccess;
 }
 
+template <typename T>
 cudaError_t launch(const void* latents, const void* pts, const void* queries, const void* ids,
                    const void* w1, const void* b2, const void* b3, const void* bq,
                    const void* bv, const void* wpack, void* out, int c, int kn,
                    cudaStream_t stream) {
   int per_sm = 0, blocks = 0;
-  cudaError_t err = grid(c, &per_sm, &blocks);
+  cudaError_t err = grid<T>(c, &per_sm, &blocks);
   if (err != cudaSuccess) return err;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  decoder_tail_narrow_wgmma_kernel<<<blocks, THREADS_L32, SMEM, stream>>>(
-      static_cast<const bf16*>(latents), f(pts), f(queries), static_cast<const int64_t*>(ids),
-      static_cast<const bf16*>(w1), f(b2), f(b3), f(bq), f(bv),
-      static_cast<const unsigned char*>(wpack), static_cast<bf16*>(out), c, kn);
+  const auto kernel = kernel_of<T>();
+  kernel<<<blocks, THREADS_L32, smem_bytes<T>(), stream>>>(
+      static_cast<const T*>(latents), f(pts), f(queries), static_cast<const int64_t*>(ids),
+      static_cast<const T*>(w1), f(b2), f(b3), f(bq), f(bv),
+      static_cast<const unsigned char*>(wpack), static_cast<T*>(out), c, kn);
   return cudaGetLastError();
+}
+
+// the weight bytes a launch of `blocks` blocks loads by design: every
+// block its pack, W1's rel rows and the biases once
+template <typename T>
+long long weight_bytes(int blocks) {
+  return static_cast<long long>(blocks) *
+         (Build<T>::PACK + 3 * LAT * static_cast<int>(sizeof(T)) + (FLOATS - F_B2) * 4);
 }
 
 }  // namespace narrow_tc
@@ -1155,8 +1082,8 @@ cudaError_t launch_bf16(const void* latents, const void* pts, const void* querie
 }  // namespace
 
 // latent 256 (PPSurf) or 32 (POCO), 64 heads, 1 <= k <= 64 neighbours a
-// query; a bf16 call needs the weight pack of its latent, an f32 call at
-// latent 256 its hi/lo pack
+// query; every call needs the weight pack of its latent and dtype (w2, w3,
+// wq and wv are read from it)
 extern "C" int ppsurf_decoder_tail(const void* latents, const void* pts,
                                    const void* queries, const void* ids,
                                    const void* w1, const void* w2,
@@ -1166,34 +1093,35 @@ extern "C" int ppsurf_decoder_tail(const void* latents, const void* pts,
                                    const void* bv, const void* wpack, void* out,
                                    int c, int k, int latent, int heads,
                                    int is_bf16, void* stream) {
-  if (k < 1 || k > K || (latent != LAT && latent != narrow::LAT) || heads != HEADS || c < 0 ||
-      ((is_bf16 || latent == LAT) && !wpack))
+  if (k < 1 || k > K || (latent != LAT && latent != narrow_tc::LAT) || heads != HEADS || c < 0 ||
+      !wpack)
     return static_cast<int>(cudaErrorInvalidValue);
   if (c == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (latent == narrow::LAT) {
+  if (latent == narrow_tc::LAT) {
     if (is_bf16)
-      return narrow_tc::launch(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, k, s);
-    return narrow::launch(latents, pts, queries, ids, w1, w2, b2, w3, b3, wq, bq, wv, bv, out,
-                          c, k, s);
+      return narrow_tc::launch<bf16>(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out,
+                                     c, k, s);
+    return narrow_tc::launch<float>(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out,
+                                    c, k, s);
   }
   if (is_bf16)
     return launch_bf16(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, k, s);
   return tf32::launch(latents, pts, queries, ids, w1, b2, b3, bq, bv, wpack, out, c, k, s);
 }
 
-// the bf16 latent-32 build's launch for c queries: out[0] 1 (no cluster),
-// out[1] its blocks an SM, out[2] the grid's blocks, out[3] the weight
-// bytes a launch streams by design (every block loads them once): a count
-// from the constants, not a measurement
-extern "C" int ppsurf_decoder_tail_l32_info(int c, long long* out) {
+// the latent-32 build's launch for c queries (bf16 or f32): out[0] 1 (no
+// cluster), out[1] its blocks an SM, out[2] the grid's blocks, out[3] the
+// weight bytes a launch streams by design (every block loads them once): a
+// count from the constants, not a measurement
+extern "C" int ppsurf_decoder_tail_l32_info(int c, int is_bf16, long long* out) {
   int per_sm = 0, blocks = 0;
-  const cudaError_t err = narrow_tc::grid(c, &per_sm, &blocks);
+  const cudaError_t err = is_bf16 ? narrow_tc::grid<bf16>(c, &per_sm, &blocks)
+                                  : narrow_tc::grid<float>(c, &per_sm, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = 1;
   out[1] = per_sm;
   out[2] = blocks;
-  out[3] = static_cast<long long>(blocks) * (narrow_tc::PACK + 3 * narrow_tc::LAT * 2 +
-                                             (narrow_tc::FLOATS - narrow_tc::F_B2) * 4);
+  out[3] = is_bf16 ? narrow_tc::weight_bytes<bf16>(blocks) : narrow_tc::weight_bytes<float>(blocks);
   return 0;
 }

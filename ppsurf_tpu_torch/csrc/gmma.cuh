@@ -8,7 +8,9 @@
 // (the RS form), and the cluster primitives (rank, barrier, distributed
 // shared memory, remote mbarrier arrivals, multicast bulk copies). Since
 // the f32 K3 and K5: f32 products as 3xTF32 (`wgmma` on tf32 operands,
-// A in registers, below).
+// A in registers, below), with A loaded from an f32 activation in shared
+// memory or, for the f32 latent-32 K3, fed from the last product's
+// accumulator fragment.
 //
 // Shared-memory operand layout (the one `wgmma` reads with 128-byte
 // swizzling, K-major): a (rows x 64) bf16 tile stores row r's 128 bytes at
@@ -475,6 +477,25 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 32, f32) (+)= A (64 x 8 tf32, registers) B (8 x 32 tf32, K-major
+// in shared memory); `accumulate` 0 overwrites.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t* a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, {%16,%17,%18,%19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 64) (+)= A (64 x 16) W (16 x 64) as 3xTF32 over two k8 steps:
 // ah / al the steps' A fragments, the weights' hi tile at shared address b
 // (the steps' first 32 bytes of each 128-byte row) and the lo tile
@@ -548,6 +569,67 @@ __device__ __forceinline__ void mma_quarter_tf32x3(float (&total)[32], const flo
       ring.release();
     }
   }
+}
+
+// the m64nNk8 tf32 product (N = 32 or 64) with A in registers, B at shared
+// address b
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t* a, uint32_t b,
+                                              int accumulate) {
+  if constexpr (N == 32)
+    wgmma_m64n32k8_tf32_rs(d, a, desc_sw128(b), accumulate);
+  else
+    wgmma_m64n64k8_tf32_rs(d, a, desc_sw128(b), accumulate);
+}
+
+// d (64 x N, N = 32 or 64) = A (64 x 32) W (32 x N) as 3xTF32, A fed from
+// registers: v is the f32 accumulator fragment of a (64 x 32) product (or
+// values in its layout), whose columns are A's inputs. With the weights'
+// inputs in `TF32_K_ORDER`, k8 step g's A fragment is {v[4g], v[4g + 2],
+// v[4g + 1], v[4g + 3]} (rows r0 and r0 + 8 of inputs 8g + cl, then of
+// 8g + cl + 1), split into hi and lo here: a layer's output feeds the next
+// layer with no shuffle and no shared memory. W's hi tile (N rows of 128
+// bytes, inputs 0-31) is at shared address b and its lo tile N * 128
+// bytes after it. All 12 products (4 steps x hi x lo, lo x hi, then hi x
+// hi) accumulate on the tensor cores: K is one 32-input chunk. Waits for
+// the result.
+template <int N>
+__device__ __forceinline__ void mma_regs_tf32x3(float (&d)[N / 2], const float (&v)[16],
+                                                uint32_t b) {
+  static_assert(N == 32 || N == 64, "m64n32k8 or m64n64k8");
+  auto mma = [&](const uint32_t* a, uint32_t at, int accumulate) {
+    wgmma_tf32_rs<N>(d, a, at, accumulate);
+  };
+  // defined before the first product reads it (`+f`): an undefined
+  // accumulator would be live from the kernel's entry
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  uint32_t ah[4][4], al[4][4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    split_tf32(v[4 * g], ah[g][0], al[g][0]);
+    split_tf32(v[4 * g + 2], ah[g][1], al[g][1]);
+    split_tf32(v[4 * g + 1], ah[g][2], al[g][2]);
+    split_tf32(v[4 * g + 3], ah[g][3], al[g][3]);
+  }
+  fence_operand(d);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    fence_operand(ah[g]);
+    fence_operand(al[g]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    mma(ah[g], b + N * 128 + 32 * g, g);  // hi x lo
+    mma(al[g], b + 32 * g, 1);  // lo x hi
+  }
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    mma(ah[g], b + 32 * g, 1);  // hi x hi
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(d);
 }
 
 // ---- thread-block clusters ----

@@ -76,11 +76,17 @@ while its bytes (latent table, ids, output) move in well under 0.1 ms.
   20 KB of weights (`pack_l32_weights`) stay in shared memory; h1 is made
   on the CUDA cores from the gathered rows, which cp.async copies a query
   ahead; the per-head softmax runs on the fc_query fragments, each
-  exponential once. f32 (`decoder_tail_narrow_kernel`): one thread a
-  neighbour row holds the row's 32 activations in registers and runs
-  every product as f32 FMA against weights kept once a block in shared
-  memory (broadcast reads); four queries a block, a named barrier each,
-  persistent blocks.
+  exponential once. f32 (`decoder_tail_narrow_tf32_kernel`): the same
+  body (the CUDA source templates it on the dtype) with every product as
+  3xTF32: each value of a product's A fragment, the previous product's
+  output fragment, is split into tf32 hi and lo in registers, and fc2,
+  fc3, fc_value (m64n32k8) and fc_query (m64n64k8) each issue 12 `wgmma`
+  tf32 products (four k8 steps x hi.lo, lo.hi, hi.hi) into one f32
+  accumulator; the 40 KB of split weights (`pack_l32_tf32x3`, inputs in
+  `TF32_K_ORDER`, so a thread's accumulator pairs are its next A
+  fragment) stay in shared memory; the gathered rows are 8 KB a query.
+  Bound: 3 x 33 GFLOP at the TF32 peak, 0.20 ms a chunk; the softmax's
+  SFU floor is the bf16 build's.
 
 Rounding follows the plain version below and `decoder_pallas.py:22-26,
 38-46, 72-80`: every product accumulates in f32 and rounds to the compute
@@ -98,11 +104,13 @@ import torch
 
 from ppsurf_tpu_torch.models.norm import dense, softmax
 from ppsurf_tpu_torch.ops import kernels
-from ppsurf_tpu_torch.ops.wgmma_layout import column_halves, tf32_stream, weight_tile
+from ppsurf_tpu_torch.ops.wgmma_layout import (
+    column_halves, tf32_slice, tf32_split, tf32_stream, weight_tile,
+)
 
 
-# (latent width, heads) of the builds; in bf16 both run on the tensor cores
-# and need `wpack`, in f32 the latent-256 one
+# (latent width, heads) of the builds; each runs on the tensor cores in
+# bf16 and in f32 and needs `wpack`
 SHAPES = ((256, 64), (32, 64))
 WGMMA_SHAPE = (256, 64)
 L32_SHAPE = (32, 64)
@@ -115,7 +123,7 @@ class DecoderTables:
     it): w1 (3, L) rel rows of fc1; w* (in, out); `wpack`, w2, w3, wq and
     wv in the tensor-core kernel's operand layout: in bf16
     (`pack_wgmma_weights` at L=256, `pack_l32_weights` at L=32) and in
-    f32 at L=256 (`pack_tf32x3_weights`)."""
+    f32 (`pack_tf32x3_weights` at L=256, `pack_l32_tf32x3` at L=32)."""
 
     dt: torch.dtype
     w1: torch.Tensor
@@ -160,6 +168,16 @@ def pack_l32_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
     return torch.cat([tile(w2), tile(w3), tile(wq), tile(wv)]).contiguous()
 
 
+def pack_l32_tf32x3(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
+                    wv: torch.Tensor) -> torch.Tensor:
+    """The latent-32 f32 kernel's resident weights, 40 KB: for W2, W3 (32
+    output columns), Wq (64) and Wv, in that order, the tf32 hi tile and
+    then the lo tile of all its output columns x its 32 inputs, each group
+    of 8 inputs in `TF32_K_ORDER` (`ops/wgmma_layout.py::tf32_slice`)."""
+    return torch.cat([tf32_slice(*tf32_split(w), slice(None), 0)
+                      for w in (w2, w3, wq, wv)]).contiguous()
+
+
 def pack_tf32x3_weights(w2: torch.Tensor, w3: torch.Tensor, wq: torch.Tensor,
                         wv: torch.Tensor) -> torch.Tensor:
     """The f32 kernel's weight stream, 1.66 MB: 104 slices of 16 KB in the
@@ -194,6 +212,8 @@ def decoder_tables(projection, dt: torch.dtype) -> DecoderTables:
         t.wpack = pack_l32_weights(t.w2, t.w3, t.wq, t.wv)
     elif dt == torch.float32 and (lat, t.heads) == WGMMA_SHAPE:
         t.wpack = pack_tf32x3_weights(t.w2, t.w3, t.wq, t.wv)
+    elif dt == torch.float32 and (lat, t.heads) == L32_SHAPE:
+        t.wpack = pack_l32_tf32x3(t.w2, t.w3, t.wq, t.wv)
     return t
 
 
@@ -215,16 +235,15 @@ def decoder_tail_plain(latents: torch.Tensor, pts: torch.Tensor,
 
 
 def _check(t: DecoderTables, lat: int, k: int) -> None:
-    """Raise unless the kernel is built for these tables and k, and tables
-    of a tensor-core build (bf16; f32 at L=256) carry their weight pack on
-    the card."""
+    """Raise unless the kernel is built for these tables and k, and the
+    tables carry their weight pack on the card (every build runs on the
+    tensor cores)."""
     if not 1 <= k <= KMAX or (lat, t.heads) not in SHAPES:
         raise ValueError(
             f"decoder_tail kernel is built for 1 <= k <= {KMAX} and (L, heads) in "
             f"{SHAPES}; got k={k}, L={lat}, heads={t.heads}"
         )
-    if ((t.dt == torch.bfloat16 or (lat, t.heads) == WGMMA_SHAPE)
-            and (t.wpack is None or not t.wpack.is_cuda)):
+    if t.wpack is None or not t.wpack.is_cuda:
         raise ValueError("decoder_tail: the tables need `wpack` on the card "
                          "(made by decoder_tables)")
 

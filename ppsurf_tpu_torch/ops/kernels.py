@@ -77,8 +77,9 @@ _INFO = {
     # c, p (64 < p <= 256): CTAs a cluster, clusters at once, grid blocks,
     # weight bytes a launch streams by design
     "ppsurf_pointnet_head_info": 2,
-    # c: 1, blocks an SM, grid blocks, weight bytes a launch streams by design
-    "ppsurf_decoder_tail_l32_info": 1,
+    # c, is_bf16: 1, blocks an SM, grid blocks, weight bytes a launch streams
+    # by design
+    "ppsurf_decoder_tail_l32_info": 2,
 }
 
 

@@ -74,7 +74,8 @@ def tf32_split(w: torch.Tensor) -> typing.Tuple[torch.Tensor, torch.Tensor]:
 def tf32_slice(hi: torch.Tensor, lo: torch.Tensor, cols: slice, kc: int) -> torch.Tensor:
     """One slice of a 3xTF32 weight stream: the hi tile, then the lo tile,
     of output columns `cols` of a split weight (in, out) against its inputs
-    32kc..32kc+31, each group of 8 in `TF32_K_ORDER` (2 x 8 KB of f32)."""
+    32kc..32kc+31, each group of 8 in `TF32_K_ORDER` (2 x 8 KB of f32 for
+    64 columns, 2 x 4 KB for 32)."""
     order = [32 * kc + 8 * g + o for g in range(4) for o in TF32_K_ORDER]
     return torch.cat([swizzle_tile(x.t()[cols][:, order].contiguous()) for x in (hi, lo)])
 

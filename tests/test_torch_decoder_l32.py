@@ -4,7 +4,8 @@ decoder tail on the tensor cores.
 
 - The 20 KB weight pack holds W2, W3, Wq and Wv exactly, each as one
   swizzled K-major tile whose K of 32 is padded with zeros, at the offsets
-  the kernel reads; `decoder_tables` makes it in bf16 only.
+  the kernel reads; `decoder_tables` makes it in bf16 (in f32 the 3xTF32
+  pack, `tests/test_torch_tf32x3.py`).
 - A bf16 call at latent 32 without its pack is refused before any launch.
 - A model of the kernel's arithmetic and reduction order over the `wgmma`
   accumulator fragments (thread t of a warpgroup holds rows
@@ -71,8 +72,8 @@ def test_l32_pack_holds_the_weights_exactly():
 def test_tables_make_the_l32_pack_in_bf16_only(dt):
     t = _tables(dt)
     assert (t.w2.shape, t.wq.shape) == ((LAT, LAT), (LAT, HEADS))
-    if dt == torch.float32:
-        assert t.wpack is None
+    if dt == torch.float32:  # the f32 build's 3xTF32 pack (tests/test_torch_tf32x3.py)
+        assert torch.equal(t.wpack, dt_mod.pack_l32_tf32x3(t.w2, t.w3, t.wq, t.wv))
         return
     assert torch.equal(t.wpack, dt_mod.pack_l32_weights(t.w2, t.w3, t.wq, t.wv))
 

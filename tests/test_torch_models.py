@@ -116,15 +116,16 @@ def test_decoder_plain_form_matches_flax():
     np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
 
 
-def test_decoder_tail_matches_flax_and_pallas():
+@pytest.mark.parametrize("latent", [256, 32])
+def test_decoder_tail_matches_flax_and_pallas(latent):
     """Projected latents (fc1 folded per point): the port's decoder tail
     (K3's plain version) against the flax path and the interpret-mode
-    Pallas kernel."""
-    net, variables, ours, lat, pts, queries, ids = _decoder_setup(seed=3)
+    Pallas kernel, at PPSurf's latent 256 and POCO's latent 32."""
+    net, variables, ours, lat, pts, queries, ids = _decoder_setup(latent=latent, seed=3)
     p = variables["params"]
     k1 = np.asarray(p["fc1"]["kernel"])
-    lat_p = lat @ k1[:256] + np.asarray(p["fc1"]["bias"])
-    var_p = {"params": dict(p, fc1={"kernel": jnp.asarray(k1[256:])})}
+    lat_p = lat @ k1[:latent] + np.asarray(p["fc1"]["bias"])
+    var_p = {"params": dict(p, fc1={"kernel": jnp.asarray(k1[latent:])})}
     ref = np.asarray(net.apply(var_p, jnp.asarray(lat_p), jnp.asarray(pts),
                                jnp.asarray(queries), jnp.asarray(ids),
                                last_layer=False, latents_projected=True))[0]

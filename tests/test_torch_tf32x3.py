@@ -9,12 +9,18 @@
   hi + lo equals x within 2^-22 |x|, and is exact for +-0.
 - The f32 weight packs hold each weight's hi and lo exactly, slice by
   slice, in the swizzled K-major layout with the inputs of each group of
-  8 in `TF32_K_ORDER`, in the order the kernels multiply them; an f32
-  call without its pack is refused before any launch.
+  8 in `TF32_K_ORDER`, in the order the kernels multiply them (K3 at
+  latent 32: each weight's hi tile and lo tile at the kernel's offsets);
+  an f32 call without its pack is refused before any launch.
+- A numpy model of the latent-32 K3's register-fed products: thread t's
+  accumulator fragment of one layer, taken as the next layer's A fragment
+  of each k8 step ({v[4g], v[4g+2], v[4g+1], v[4g+3]}) against the
+  pack's tiles, gives the product in true input order.
 - A model of the kernels' products (the three terms hi x hi, hi x lo,
   lo x hi of each k8 step, each accumulated in f32) run through the
-  plain versions at full width (K3 at L=256, 64 rows; K4 and K5 at P in
-  {50, 200}) on seeded queries meets the smoke's f32 limits against the
+  plain versions at full width (K3 at L=256, 64 rows, and at L=32, k in
+  {50, 64}; K4 and K5 at P in {50, 200}) on seeded queries meets the
+  smoke's f32 limits against the
   plain f32 versions (max |diff| 1e-4, mean 2e-6, x max(1, max |plain|));
   the same model with one term (plain TF32) and with hi x lo dropped
   misses them, so the limits bite. The committed weights are f16 values,
@@ -33,6 +39,7 @@ import pytest
 import torch
 
 from ppsurf_tpu_torch.convert.infer_npz import load_infer_npz, load_network
+from ppsurf_tpu_torch.convert.init import init_variables
 from ppsurf_tpu_torch.models.norm import dense
 from ppsurf_tpu_torch.ops import decoder_tail as dt_mod
 from ppsurf_tpu_torch.ops import pointnet_att as pn
@@ -40,7 +47,7 @@ from ppsurf_tpu_torch.ops.patches import patch_space
 from ppsurf_tpu_torch.ops.wgmma_layout import (
     TF32_K_ORDER, tf32_round, tf32_split, unswizzle_tile,
 )
-from ppsurf_tpu_torch.train.model import ppsurf_spec
+from ppsurf_tpu_torch.train.model import poco_spec, ppsurf_spec
 
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "models_pretrained", "ppsurf_mini_infer.npz")
@@ -166,6 +173,67 @@ def test_trunk_pack_holds_hi_and_lo_of_each_weight():
         _check_split(w, hi, lo)
 
 
+def _poco_tables():
+    """POCO's latent-32 decoder tables in f32 from seeded weights (full
+    f32 mantissas) with seeded nonzero biases."""
+    proj = load_network(poco_spec(dtype=F32), init_variables(poco_spec(), seed=0),
+                        torch.device("cpu")).projection
+    rng = np.random.RandomState(7)
+    with torch.no_grad():
+        for layer in (proj.fc2, proj.fc3, proj.fc_query, proj.fc_value):
+            layer.bias.copy_(torch.from_numpy(0.1 * rng.randn(*layer.bias.shape)))
+    return dt_mod.decoder_tables(proj, F32)
+
+
+def test_l32_pack_holds_hi_and_lo_of_each_weight():
+    t = _poco_tables()
+    assert t.wpack.dtype == F32 and t.wpack.numel() * 4 == 40960
+    assert torch.equal(t.wpack, dt_mod.pack_l32_tf32x3(t.w2, t.w3, t.wq, t.wv))
+    inputs = [8 * g + o for g in range(4) for o in TF32_K_ORDER]
+    # the kernel's offsets (bytes) of each weight's hi tile; its lo tile
+    # follows, (out columns x 128 bytes) later
+    for at, w in ((0, t.w2), (8192, t.w3), (16384, t.wq), (32768, t.wv)):
+        n_out = w.shape[1]
+        hi, lo = torch.zeros(32, n_out), torch.zeros(32, n_out)
+        for part, out in ((0, hi), (1, lo)):
+            start = at // 4 + part * n_out * 32
+            out[inputs] = unswizzle_tile(t.wpack[start:start + n_out * 32], n_out).t()
+        _check_split(w, hi, lo)
+    assert not tf32_split(t.w2)[1].eq(0).all()  # the seeded weights have full mantissas
+
+
+def test_register_fed_a_fragments_give_the_product_in_input_order():
+    """The kernel's m64nNk8 products, modelled lane by lane: thread t
+    (warp w = t / 32, lane l) holds v[4g + e] = V[r0 + 8 (e / 2), 8g + cl
+    + e % 2] of the previous layer's (64 x 32) output V, r0 = 16w + l / 4,
+    cl = 2 (l % 4); its A fragment of step g is {v[4g], v[4g + 2], v[4g +
+    1], v[4g + 3]}, a[i] at row r0 + 8 (i % 2), logical column l % 4 + 4
+    (i / 2), and logical column j multiplies the tile's K row j."""
+    t = _poco_tables()
+    rng = np.random.RandomState(11)
+    v_mat = rng.randn(64, 32)
+    for at, w in ((0, t.w2), (16384, t.wq)):
+        n_out = w.shape[1]
+        tiles = [unswizzle_tile(t.wpack[at // 4 + p * n_out * 32:
+                                        at // 4 + (p + 1) * n_out * 32], n_out).double()
+                 for p in (0, 1)]
+        b = (tiles[0] + tiles[1]).numpy()  # (n_out, 32): hi + lo, K in tile order
+        d = np.zeros((64, n_out))
+        for thread in range(128):
+            warp, lane = divmod(thread, 32)
+            r0, cl = 16 * warp + lane // 4, 2 * (lane % 4)
+            v = [v_mat[r0 + 8 * (e // 2), 8 * g + cl + e % 2] for g in range(4) for e in range(4)]
+            for g in range(4):
+                a = (v[4 * g], v[4 * g + 2], v[4 * g + 1], v[4 * g + 3])
+                for i in range(4):
+                    row, col = r0 + 8 * (i % 2), lane % 4 + 4 * (i // 2)
+                    d[row] += a[i] * b[:, 8 * g + col]
+        # each (row, k step) is fed by the 4 lanes of its quad once each
+        hi, lo = tf32_split(w)
+        want = v_mat @ (hi.double() + lo.double()).numpy()
+        np.testing.assert_allclose(d, want, rtol=1e-12, atol=1e-12)
+
+
 def test_f32_calls_without_their_pack_are_refused():
     net = _net()
     t = dt_mod.decoder_tables(net.projection, F32)
@@ -176,6 +244,15 @@ def test_f32_calls_without_their_pack_are_refused():
     t.wpack = None
     with pytest.raises(ValueError, match="wpack"):
         dt_mod._check(t, 256, 64)
+    t32 = _poco_tables()
+    with pytest.raises(ValueError, match="wpack"):
+        dt_mod._check(t32, 32, 64)  # its pack, but on the CPU
+    t32.wpack = types.SimpleNamespace(is_cuda=True)
+    dt_mod._check(t32, 32, 64)
+    t32.wpack = None
+    for k in (1, 50, 64):
+        with pytest.raises(ValueError, match="wpack"):
+            dt_mod._check(t32, 32, k)
     tabs = pn.pointnet_tables(net.point_net)
     tabs.head_pack = None
     with pytest.raises(ValueError, match="weight pack"):
@@ -310,5 +387,31 @@ def test_k4_product_model_against_the_limits(k4_cases, p, variant, monkeypatch):
     out, ref = torch.cat([b.flatten(), pooled.flatten()]), torch.cat([b_ref.flatten(),
                                                                       pooled_ref.flatten()])
     err = _errors(out, ref)
+    within = err[0] <= LIMITS[0] and err[1] <= LIMITS[1]
+    assert within == (variant == "3xTF32"), (variant, err)
+
+
+@pytest.fixture(scope="module")
+def k3_l32_cases():
+    t = _poco_tables()
+    rng = np.random.RandomState(6)
+    n, c = 2000, 200
+    latents = torch.from_numpy(rng.randn(n, 32).astype(np.float32))
+    pts = torch.from_numpy(rng.rand(n, 3).astype(np.float32) - 0.5)
+    queries = torch.from_numpy(rng.rand(c, 3).astype(np.float32) - 0.5)
+    ids = torch.from_numpy(rng.randint(0, n, (c, 64)))
+    cases = {}
+    for k in (50, 64):
+        args = (latents, pts, queries, ids[:, :k].contiguous(), t)
+        cases[k] = args, dt_mod.decoder_tail_plain(*args)
+    return cases
+
+
+@pytest.mark.parametrize("k", (50, 64))
+@pytest.mark.parametrize("variant", list(TERMS))
+def test_k3_l32_product_model_against_the_limits(k3_l32_cases, k, variant, monkeypatch):
+    args, ref = k3_l32_cases[k]
+    monkeypatch.setattr(dt_mod, "dense", _model_dense(TERMS[variant]))
+    err = _errors(dt_mod.decoder_tail_plain(*args), ref)
     within = err[0] <= LIMITS[0] and err[1] <= LIMITS[1]
     assert within == (variant == "3xTF32"), (variant, err)

@@ -47,9 +47,9 @@
 //
 // A thread sums a tile's arctangents in f32, then adds that tile sum to its
 // running total; the split's total goes to partial[split][query]. A second
-// kernel adds the splits in split order and divides by 2 pi (the sum holds
-// omega / 2). No atomics: the result depends only on the inputs and the
-// split count.
+// kernel adds the splits in split order in f64 and divides by 2 pi (the sum
+// holds omega / 2). No atomics: the result depends only on the inputs and
+// the split count.
 #include "common.cuh"
 #include "gmma.cuh"
 
@@ -237,13 +237,17 @@ winding_kernel(const float* __restrict__ q, const float4* __restrict__ faces,
   }
 }
 
+// the splits' totals added in split order in f64: the running sum of up to
+// a few hundred of them reaches the query's winding number (hundreds of
+// turns inside a soup of large triangles), and adding them in f32 read up
+// to 3x the plain version's error there
 __global__ void winding_sum_kernel(const float* __restrict__ partial,
                                    float* __restrict__ out, int nq, int splits) {
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   if (qi >= nq) return;
-  float acc = 0.f;
+  double acc = 0.0;
   for (int s = 0; s < splits; ++s) acc += partial[static_cast<size_t>(s) * nq + qi];
-  out[qi] = acc / 6.28318548f;  // 2 pi rounded to f32, half of 4 pi's f32
+  out[qi] = static_cast<float>(acc / 6.283185307179586);  // the sum holds omega / 2
 }
 
 }  // namespace

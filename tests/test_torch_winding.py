@@ -227,7 +227,7 @@ def pair_terms(q, faces, nearest: bool = True):
 def winding_model(q, a, b, c, nearest: bool = True):
     """W1's arithmetic: packed faces, per-tile f32 sums of the fused
     arctangent steps added into a running total, divided by 2 pi. One
-    split (the kernel adds the splits' totals in split order). A query on
+    split (the kernel adds the splits' totals in split order, in f64). A query on
     a vertex takes that vertex's zero difference vector as v, so its
     numerator is exactly +-0, as the plain version's is."""
     faces = pack_model(a, b, c)

@@ -676,9 +676,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return 1024 + Build<T>::PACK + FLOATS * 4 + WGS * wg_bytes<T>();
 }
 
-__device__ __forceinline__ float2 ld_f2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
+// two neighbouring values as f32
 __device__ __forceinline__ float2 ld_pair(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -857,8 +855,8 @@ __device__ __forceinline__ void narrow_body(unsigned char* smem_raw, const T* __
           const int col = 8 * jj + cl;
           const float2 x =
               ld_pair(reinterpret_cast<const T*>(xb + (r0 + 8 * rs) * ROW_BYTES) + col);
-          const float2 wa = ld_f2(fw + col), wb = ld_f2(fw + LAT + col),
-                       wc = ld_f2(fw + 2 * LAT + col);
+          const float2 wa = ld_pair(fw + col), wb = ld_pair(fw + LAT + col),
+                       wc = ld_pair(fw + 2 * LAT + col);
           const float rw0 = rnd<T>(fmaf(rr[2], wc.x, fmaf(rr[1], wb.x, rr[0] * wa.x)));
           const float rw1 = rnd<T>(fmaf(rr[2], wc.y, fmaf(rr[1], wb.y, rr[0] * wa.y)));
           h[4 * jj + 2 * rs] = fmaxf(rnd<T>(x.x + rw0), 0.f);
@@ -876,7 +874,7 @@ __device__ __forceinline__ void narrow_body(unsigned char* smem_raw, const T* __
       const float* bias = fw + (layer ? F_B3 : F_B2);
 #pragma unroll
       for (int i = 0; i < 16; i += 2) {
-        const float2 b = ld_f2(bias + 8 * (i >> 2) + cl);
+        const float2 b = ld_pair(bias + 8 * (i >> 2) + cl);
         acc[i] = fmaxf(l32_dense<T>(acc[i], b.x), 0.f);
         acc[i + 1] = fmaxf(l32_dense<T>(acc[i + 1], b.y), 0.f);
       }
@@ -890,7 +888,7 @@ __device__ __forceinline__ void narrow_body(unsigned char* smem_raw, const T* __
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const bool real = (i & 2) ? real1 : real0;
-      const float2 b = ld_f2(fw + F_BQ + 8 * (i >> 2) + cl);
+      const float2 b = ld_pair(fw + F_BQ + 8 * (i >> 2) + cl);
       q[i] = real ? l32_dense<T>(q[i], b.x) : ninf;
       q[i + 1] = real ? l32_dense<T>(q[i + 1], b.y) : ninf;
     }
@@ -958,7 +956,7 @@ __device__ __forceinline__ void narrow_body(unsigned char* smem_raw, const T* __
       float2 s[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float2 b = ld_f2(fw + F_BV + 8 * j + cl);
+        const float2 b = ld_pair(fw + F_BV + 8 * j + cl);
         s[j].x = __fadd_rn(__fmul_rn(a0, l32_dense<T>(v[4 * j], b.x)),
                            __fmul_rn(a1, l32_dense<T>(v[4 * j + 2], b.x)));
         s[j].y = __fadd_rn(__fmul_rn(a0, l32_dense<T>(v[4 * j + 1], b.y)),

@@ -2286,8 +2286,8 @@ def main() -> int:
         # tensor-core kernels read at most 8.5e-3 and 1.2e-6 (K3; K4 2.2e-8
         # and K5 2.7e-7 mean); kernels with one rounding step removed read
         # at least 1.4e-5 mean, K4's at least 2.6e-2 max. f32: the 3xTF32
-        # K3 and K5 read at most 1.5e-6 and 3.3e-7 (K3); with one TF32 term
-        # or lo x hi dropped at least 1.6e-5 mean (K3) and 2.1e-3 max (K5)
+        # K3-K5 read at most 1.5e-6 and 3.3e-7 (K3); with one TF32 term or
+        # lo x hi dropped at least 1.1e-5 mean (K3) and 1.3e-4 max (K5)
         # (chip_rounding_control.py, PERF.md)
         for dt, tag, tol in ((torch.bfloat16, "bf16", (1.6e-2, 2e-6)),
                              (torch.float32, "f32", (1e-4, 2e-6))):

@@ -7,7 +7,7 @@
 // Since the latent-32 K3 and the cluster K5: products with A in registers
 // (the RS form), and the cluster primitives (rank, barrier, distributed
 // shared memory, remote mbarrier arrivals, multicast bulk copies). Since
-// the f32 K3 and K5: f32 products as 3xTF32 (`wgmma` on tf32 operands,
+// the f32 K3-K5: f32 products as 3xTF32 (`wgmma` on tf32 operands,
 // A in registers, below), with A loaded from an f32 activation in shared
 // memory or, for the f32 latent-32 K3, fed from the last product's
 // accumulator fragment.

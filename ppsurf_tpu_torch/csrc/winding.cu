@@ -14,17 +14,26 @@
 // and an arctangent, 6.5e10 pairs at the metrics' shape. The design cuts
 // what a pair issues:
 // - the faces come packed by the wrapper (`ops/winding.py::pack_faces`),
-//   three float4 a face, (A, Nx) (B, Ny) (C, Nz), zero-padded to whole
-//   tiles: the numerator is three FMAs with no cross product, and a
+//   three float4 a face, (A, Nx) (B, Ny) (C, Nz), N rounded once from
+//   float64, zero-padded to whole tiles: the numerator is three FMAs with
+//   no cross product, and a
 //   padding face adds exactly 0 (N = 0 gives a numerator of +-0 over a
 //   positive denominator, or +-0 over +0 for a query at the origin);
 // - the numerator is v . N with v the difference vector of the face vertex
 //   nearest the query (a . N = b . N = c . N in real arithmetic): v . N
 //   rounds by about eps |v||N|, which shrinks as the query nears that
 //   vertex, as the true numerator does (a . N alone lost the quadrant a
-//   1e-4 edge from B or C). A query on a vertex takes that vertex's zero
-//   vector, so its numerator is exactly +-0 over a denominator of +0, as
-//   the plain version's a . (b x c) is, and the pair adds 0;
+//   1e-4 edge from B or C). The three numerators are formed and the
+//   nearest vertex's kept: scalar selects cost less than selecting the
+//   vector. A query on a vertex takes that vertex's zero vector, so its
+//   numerator is exactly +-0 over a denominator of +0, as the plain
+//   version's a . (b x c) is, and the pair adds 0;
+// - two kinds of pair next to a face lose accuracy in f32: within f32
+//   rounding of its plane, inside it, where the numerator's sign alone
+//   picks +pi or -pi (a wrong sign costs a whole turn), and near an edge,
+//   where numerator and denominator both cancel. The general path takes
+//   them in float64 (`repair_terms`); the fast path's vote keeps them out
+//   of the fast path at two FMULs (|a||b||c|) and one FFMA a pair;
 // - a block of W_THREADS threads, W_QUERIES queries each, walks a
 //   contiguous range of face tiles (grid.y splits the face axis), staged
 //   W_TILE faces at a time into a W_STAGES-deep shared-memory ring by 1-D
@@ -39,7 +48,8 @@
 //   dot products or a . N into products of query and face terms would
 //   cancel near the surface, where the inside test matters most.
 // The arctangent has two paths. A face for which every pair of the warp has
-// |num| < den (a solid angle under pi/2: all but faces next to a query)
+// |num| + W1_EDGE |a||b||c| < den (a solid angle under pi/2 and no edge
+// close: all but faces next to a query)
 // takes atan(num / den) = r P(r^2) directly, fused into the tile sum; any
 // other face takes the full quadrant logic (`add_atan2`) for the whole
 // warp. The branch is warp-uniform, and where both apply they give the same
@@ -124,32 +134,112 @@ __device__ __forceinline__ float add_atan2(float sum, float n, float d) {
               sum + __uint_as_float(__float_as_uint(base) ^ sign));
 }
 
-// numerator v . N (v of the vertex nearest q, ties to A, then B) and
-// denominator of one (query, face) pair
+// The general path's float64 repairs. Two kinds of pair lose accuracy in
+// f32, and both lie next to the face, where the fast path never goes:
+// - Near the face's plane, inside the face, d < 0 and the sign of n alone
+//   picks +pi or -pi. With N rounded once from its float64 value
+//   (`pack_faces`: |N_i - N*_i| <= u |N*_i|, u = eps / 2 = 2^-24, N* the
+//   exact normal of the f32 vertices), v_i = fl(P_i - q_i) within u |v*_i|
+//   and the three FMAs of v . N adding at most 3 roundings, the numerator
+//   against n* = (A - q) . ((B - q) x (C - q)) of the f32 inputs is
+//     |n - n*| <= (gamma_3 + gamma_2 (1 + 2u)) sum |v_i||N_i|
+//              <= 2.5 eps (1 + 6u) |v||N|
+//   (gamma_k = k u / (1 - k u); Cauchy-Schwarz for the last step). |v| is
+//   within (1 + u)(1 + 2 delta) of the nearest vertex's exact distance
+//   |v*|, delta the approximate root's relative error (`pair_terms` picks
+//   the vertex by approximate lengths), and the float64 normal's own error
+//   (below 2^-51 |B - A||C - A|) is under 0.1 eps |N| unless the face's
+//   f32 vertices are collinear to 1e-8. So |n - n*| <= W1_NUM_ERR_EPS eps
+//   |v*||N| with W1_NUM_ERR_EPS = 3, the 0.5 above 2.5 covering those
+//   factors. Where d < 0 and |n| is within that bound, n may have the wrong
+//   sign, and the numerator is taken again in float64.
+// - Near an edge, n and d both cancel: the rounding of a, b and c alone
+//   moves the edge by eps |b| against q, and the angle errs by up to about
+//   3.5 eps / c in f32 (measured on the CPU model of this arithmetic), with
+//   c = |(n, d)| / (|a||b||c|). Where max(|n|, |d|) <= W1_EDGE |a||b||c|
+//   (c below 2^-6 to within sqrt 2, a pair within about 1/64 of an edge's
+//   length of that edge) both are taken in float64, so the angle errs by
+//   at most about 3.5 eps / W1_EDGE = 2.7e-5 rad where f32 is kept.
+// The fast path's vote keeps such pairs out of it: it needs
+// |n| + W1_EDGE |a||b||c| < d, so a pair it passes has d > W1_EDGE |a||b||c|
+// and is never repaired, and the two paths still give the same bits.
+// Mirrored in `ops/winding.py` (`NUM_ERR_EPS`, `EDGE`), which the CPU
+// tests hold to this text, the first to a sweep of near-plane pairs.
+// BEGIN W1 REPAIR BOUNDS
+constexpr float W1_NUM_ERR_EPS = 3.0f;
+constexpr float W1_EDGE = 0.015625f;
+// END W1 REPAIR BOUNDS
+constexpr double W1_NUM_ERR = W1_NUM_ERR_EPS * 1.1920928955078125e-7;
+
+// The repairs of one pair in float64 from the f32 inputs: (n, d), or
+// (n*, d*) where `edge`, or (n*, d) where d < 0 and |n| is within the
+// bound. n* = v* . ((B - A) x (C - A)), v* the exact difference vector of
+// the vertex nearest q: in real arithmetic (A - q) . ((B - q) x (C - q)),
+// the float64 reference's formula, but exactly +-0 for a query on a vertex
+// (v* = 0) and for a face with a repeated vertex (an edge vector 0), as
+// the f32 v . N is. The differences are exact in float64 and the edge
+// products nearly so; n* errs by about 2^-51 |v*||B - A||C - A|, d* by
+// about 2^-50 |a||b||c|. An f32 query within f32 rounding of the plane but
+// not on it lies typically 2^-25 |q| off it, so float64 decides its sign
+// with some 20 bits to spare; a query on the plane to float64's precision
+// is left, and there the winding number steps by one anyway. So no exact
+// (orient3d-style) expansion is taken.
+__device__ __forceinline__ float2 repair_terms(float qx, float qy, float qz, float4 pa,
+                                               float4 pb, float4 pc, bool edge, float n, float d) {
+  const double ax = double(pa.x) - qx, ay = double(pa.y) - qy, az = double(pa.z) - qz;
+  const double bx = double(pb.x) - qx, by = double(pb.y) - qy, bz = double(pb.z) - qz;
+  const double cx = double(pc.x) - qx, cy = double(pc.y) - qy, cz = double(pc.z) - qz;
+  const double aa = ax * ax + ay * ay + az * az, bb = bx * bx + by * by + bz * bz,
+               cc = cx * cx + cy * cy + cz * cz;
+  // |n| > W1_NUM_ERR |v*||N| (squared): f32 has the sign
+  const double nn = double(pa.w) * pa.w + double(pb.w) * pb.w + double(pc.w) * pc.w;
+  if (!edge && double(n) * n > W1_NUM_ERR * W1_NUM_ERR * fmin(aa, fmin(bb, cc)) * nn)
+    return make_float2(n, d);
+  double vx = ax, vy = ay, vz = az, vv = aa;
+  if (bb < vv) { vx = bx; vy = by; vz = bz; vv = bb; }
+  if (cc < vv) { vx = cx; vy = cy; vz = cz; }
+  const double ux = double(pb.x) - pa.x, uy = double(pb.y) - pa.y, uz = double(pb.z) - pa.z;
+  const double wx = double(pc.x) - pa.x, wy = double(pc.y) - pa.y, wz = double(pc.z) - pa.z;
+  n = static_cast<float>(vx * (uy * wz - uz * wy) + vy * (uz * wx - ux * wz) +
+                         vz * (ux * wy - uy * wx));
+  if (edge) {
+    const double la = sqrt(aa), lb = sqrt(bb), lc = sqrt(cc);
+    d = static_cast<float>(la * lb * lc + (ax * bx + ay * by + az * bz) * lc +
+                           (bx * cx + by * cy + bz * cz) * la + (cx * ax + cy * ay + cz * az) * lb);
+  }
+  return make_float2(n, d);
+}
+
+// numerator v . N (v of the vertex nearest q, ties to A, then B),
+// denominator and |a||b||c| of one (query, face) pair
 __device__ __forceinline__ void pair_terms(float qx, float qy, float qz, float4 pa, float4 pb,
-                                           float4 pc, float& n, float& d) {
+                                           float4 pc, float& n, float& d, float& l3) {
   const float ax = pa.x - qx, ay = pa.y - qy, az = pa.z - qz;
   const float bx = pb.x - qx, by = pb.y - qy, bz = pb.z - qz;
   const float cx = pc.x - qx, cy = pc.y - qy, cz = pc.z - qz;
   const float la = sqrt_approx(fmaf(az, az, fmaf(ay, ay, ax * ax)));
   const float lb = sqrt_approx(fmaf(bz, bz, fmaf(by, by, bx * bx)));
   const float lc = sqrt_approx(fmaf(cz, cz, fmaf(cy, cy, cx * cx)));
-  float vx = ax, vy = ay, vz = az, lv = la;
-  if (lb < lv) { vx = bx; vy = by; vz = bz; lv = lb; }
-  if (lc < lv) { vx = cx; vy = cy; vz = cz; }
-  n = fmaf(vz, pc.w, fmaf(vy, pb.w, vx * pa.w));
+  const float na = fmaf(az, pc.w, fmaf(ay, pb.w, ax * pa.w));
+  const float nb = fmaf(bz, pc.w, fmaf(by, pb.w, bx * pa.w));
+  const float nc = fmaf(cz, pc.w, fmaf(cy, pb.w, cx * pa.w));
+  n = lb < la ? nb : na;
+  n = lc < fminf(la, lb) ? nc : n;
   const float ab = fmaf(az, bz, fmaf(ay, by, ax * bx));
   const float bc = fmaf(bz, cz, fmaf(by, cy, bx * cx));
   const float ca = fmaf(cz, az, fmaf(cy, ay, cx * ax));
-  // (|a||b| + a.b)|c| + (b.c)|a| + (c.a)|b|, from +0: a query on a vertex
-  // gives +0 (as the plain version's sum does), never -0
-  d = fmaf(ca, lb, fmaf(bc, la, fmaf(lc, fmaf(la, lb, ab), 0.f)));
+  // |a||b||c| + (a.b)|c| + (b.c)|a| + (c.a)|b|: a query on a vertex gives
+  // |a||b||c| = +0 and then +0 (as the plain version's sum does), never -0
+  l3 = la * lb * lc;
+  d = fmaf(ca, lb, fmaf(bc, la, fmaf(ab, lc, l3)));
 }
 
-// every pair of the warp has |n| < d, with d below FLT_MIN counted as 0
-// (.ftz): then 0 < d and r = n / d lies in (-1, 1)
+// every pair of the warp has |n| + W1_EDGE |a||b||c| < d, with d below
+// FLT_MIN counted as 0 (.ftz): then 0 < d, r = n / d lies in (-1, 1), and
+// the pair is not near an edge
 __device__ __forceinline__ bool warp_all_inner(const float (&n)[W_QUERIES],
-                                               const float (&d)[W_QUERIES]) {
+                                               const float (&d)[W_QUERIES],
+                                               const float (&l3)[W_QUERIES]) {
   static_assert(W_QUERIES == 4, "the vote below compares four pairs");
   uint32_t all;
   asm volatile("{\n"
@@ -162,8 +252,10 @@ __device__ __forceinline__ bool warp_all_inner(const float (&n)[W_QUERIES],
       "selp.u32 %0, 1, 0, p;\n"
       "}\n"
       : "=r"(all)
-      : "f"(fabsf(n[0])), "f"(d[0]), "f"(fabsf(n[1])), "f"(d[1]), "f"(fabsf(n[2])), "f"(d[2]),
-        "f"(fabsf(n[3])), "f"(d[3]));
+      : "f"(fmaf(l3[0], W1_EDGE, fabsf(n[0]))), "f"(d[0]),
+        "f"(fmaf(l3[1], W1_EDGE, fabsf(n[1]))), "f"(d[1]),
+        "f"(fmaf(l3[2], W1_EDGE, fabsf(n[2]))), "f"(d[2]),
+        "f"(fmaf(l3[3], W1_EDGE, fabsf(n[3]))), "f"(d[3]));
   return all != 0;
 }
 
@@ -206,10 +298,11 @@ winding_kernel(const float* __restrict__ q, const float4* __restrict__ faces,
 #pragma unroll 2
     for (int f = 0; f < W_TILE; ++f) {
       const float4 pa = tile[3 * f], pb = tile[3 * f + 1], pc = tile[3 * f + 2];
-      float n[W_QUERIES], d[W_QUERIES];
+      float n[W_QUERIES], d[W_QUERIES], l3[W_QUERIES];
 #pragma unroll
-      for (int j = 0; j < W_QUERIES; ++j) pair_terms(qx[j], qy[j], qz[j], pa, pb, pc, n[j], d[j]);
-      if (warp_all_inner(n, d)) {
+      for (int j = 0; j < W_QUERIES; ++j)
+        pair_terms(qx[j], qy[j], qz[j], pa, pb, pc, n[j], d[j], l3[j]);
+      if (warp_all_inner(n, d, l3)) {
 #pragma unroll
         for (int j = 0; j < W_QUERIES; ++j) {
           const float r = n[j] * rcp_approx(d[j]);
@@ -217,7 +310,13 @@ winding_kernel(const float* __restrict__ q, const float4* __restrict__ faces,
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < W_QUERIES; ++j) sum[j] = add_atan2(sum[j], n[j], d[j]);
+        for (int j = 0; j < W_QUERIES; ++j) {
+          // not taken by a pair the vote passed: max(|n|, |d|) >= d > W1_EDGE l3
+          const bool edge = fmaxf(fabsf(n[j]), fabsf(d[j])) <= W1_EDGE * l3[j];
+          float2 t = make_float2(n[j], d[j]);
+          if (edge || d[j] < 0.f) t = repair_terms(qx[j], qy[j], qz[j], pa, pb, pc, edge, t.x, t.y);
+          sum[j] = add_atan2(sum[j], t.x, t.y);
+        }
       }
     }
 #pragma unroll

@@ -23,7 +23,14 @@ four queries a thread, face tiles staged by bulk copies,
 the face axis split over blocks whose sums are added in a fixed order,
 approximate square roots and an arctangent of bounded relative error
 (`ATAN_COEFFS`); it agrees with the plain version to rounding, not bit
-for bit.
+for bit. Next to a face the kernel takes two kinds of pair in float64: within
+f32 rounding of the face's plane, inside it, where the solid angle is
+near +-2 pi and the numerator's sign alone picks the turn (where |n| is
+within the numerator's stated rounding bound, `NUM_ERR_EPS`), and near an
+edge, where numerator and denominator both cancel (`EDGE`). The plain
+version keeps the JAX package's f32 a . (b x c) and, like it, can lose a
+whole turn near a plane: there W1 is held to float64, not to its plain
+version.
 
 What bounds it on an H100: issued instructions. The formula is 64 f32
 additions and multiplications, three square roots and an arctangent for
@@ -56,11 +63,27 @@ ATAN_COEFFS = (
     -0.004822535,
 )
 # END W1 ATAN COEFFS
+# The general path's float64 repairs (`repair_terms` in `csrc/winding.cu`,
+# where both constants are derived; the CPU tests hold this text to it):
+# the numerator v . N errs by at most NUM_ERR_EPS eps |v*||N| (eps = 2^-23,
+# v* the exact difference vector of the nearest vertex), so where d < 0 and
+# |n| is within that its sign is taken in float64; and a pair with
+# max(|n|, |d|) <= EDGE |a||b||c| lies so near an edge that both are.
+# BEGIN W1 REPAIR BOUNDS
+NUM_ERR_EPS = 3.0
+EDGE = 0.015625
+# END W1 REPAIR BOUNDS
 
 
 def winding_plain(queries: torch.Tensor, tri_a: torch.Tensor, tri_b: torch.Tensor,
                   tri_c: torch.Tensor, q_tile: int = Q_TILE) -> torch.Tensor:
-    """Plain PyTorch version of W1, tiled as `_winding_tiled`."""
+    """Plain PyTorch version of W1, tiled as `_winding_tiled`.
+
+    It keeps the JAX package's f32 numerator a . (b x c), so at a query
+    within f32 rounding of a face's plane, inside the face, it can take
+    the wrong sign of a solid angle near 2 pi and lose a whole turn, as
+    `_winding_tiled` does. W1 decides that sign in float64, so near a plane
+    W1 is held to float64, not to this version."""
     queries = queries.float()
     num_f = tri_a.shape[0]
     pad_f = (-num_f) % F_TILE
@@ -90,12 +113,17 @@ def winding_plain(queries: torch.Tensor, tri_a: torch.Tensor, tri_b: torch.Tenso
 def pack_faces(tri_a: torch.Tensor, tri_b: torch.Tensor, tri_c: torch.Tensor,
                tile: int = W_TILE) -> torch.Tensor:
     """The kernel's face layout: (ceil(F / tile) * tile, 12) f32 rows
-    (A, Nx, B, Ny, C, Nz) with N = (B - A) x (C - A), then all-zero rows
-    up to whole tiles. A zero row is a triangle at the origin with N = 0:
-    its numerator is +-0 over a positive denominator (or 0 over 0 for a
-    query at the origin), so it adds exactly 0."""
+    (A, Nx, B, Ny, C, Nz) with N = (B - A) x (C - A) computed in float64
+    and rounded once to f32 (so |N_i - N*_i| <= eps / 2 |N*_i| for the
+    exact normal N* of the f32 vertices, which the kernel's numerator
+    bound `NUM_ERR_EPS` needs; an f32 cross product errs by eps |B - A||C - A|,
+    far more than that on thin faces), then all-zero rows up to whole
+    tiles. A zero row is a triangle at the origin with N = 0: its
+    numerator is +-0 over a positive denominator (or 0 over 0 for a query
+    at the origin), so it adds exactly 0."""
     a, b, c = (t.float() for t in (tri_a, tri_b, tri_c))
-    n = torch.linalg.cross(b - a, c - a)
+    a64 = a.double()
+    n = torch.linalg.cross(b.double() - a64, c.double() - a64).float()
     packed = torch.cat([a, n[:, :1], b, n[:, 1:2], c, n[:, 2:]], dim=1)
     return F.pad(packed, (0, 0, 0, (-a.shape[0]) % tile))
 
@@ -105,7 +133,10 @@ def winding(queries: torch.Tensor, tri_a: torch.Tensor, tri_b: torch.Tensor,
     """Winding numbers (Q,) f32 of `queries` (Q, 3) against the triangles
     `tri_a`, `tri_b`, `tri_c` (F, 3).
 
-    CPU tensors take the plain version; CUDA tensors launch W1.
+    CPU tensors take the plain version; CUDA tensors launch W1. The two
+    agree to rounding, but for queries within f32 rounding of a face's
+    plane, where the plain version can lose a whole turn and W1, which
+    takes the numerator's sign in float64 there, is held to float64.
     """
     for name, t in (("queries", queries), ("tri_a", tri_a), ("tri_b", tri_b),
                     ("tri_c", tri_c)):

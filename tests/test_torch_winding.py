@@ -11,19 +11,32 @@ exact product-sum, the reciprocal and square roots exactly rounded):
   the relative-error bound the source states, with an exact reciprocal and
   with it 1 ulp off either way; the signed zeros and +-pi exactly; the
   fast path's fused step equal to the general one to the bit;
-- `pack_faces`: N = (B - A) x (C - A), the row layout, zero rows up to
-  whole tiles; a padding face adds exactly 0 through the plain formula on
-  the packed form and through the kernel's arithmetic;
+- `pack_faces`: N = (B - A) x (C - A) rounded once from float64, the row
+  layout, zero rows up to whole tiles; a padding face adds exactly 0
+  through the plain formula on the packed form and through the kernel's
+  arithmetic;
 - the kernel's pair loop (packed faces, the numerator from the face
-  vertex nearest the query, per-tile sums, the general path for every
-  pair, whose bits the fast path gives) on a closed sphere mesh with
+  vertex nearest the query, per-tile sums, the general path with its
+  float64 repairs for every pair, whose bits the fast path gives where
+  its vote passes) on a closed sphere mesh with
   queries on vertices and degenerate faces, within 1e-5 of `winding_plain`
   and of the JAX package's `_winding_tiled`, and no further from float64
   than twice the plain version (or 1e-5): the smoke's W1 limits, here on
   the model;
 - a near-vertex probe under the same limits: queries 1e-2 to 1e-5 edges
   from a face's B or C, from every direction, on a closed icosphere and
-  on small random triangles; the first design's a . N numerator fails it.
+  on small random triangles; the first design's a . N numerator fails it;
+- the general path's float64 repairs (`repair_terms`): their two
+  constants equal as text between the kernel and `ops/winding.py`; the
+  numerator within its stated bound NUM_ERR_EPS eps |v*||N| over 200 000
+  pairs within f32 rounding of a face's plane, where f32 gets many signs
+  wrong; a near-plane probe (queries inside the faces of a closed
+  icosphere and of large triangles, each off its plane in exact
+  arithmetic) with the model within 1e-4 of float64 at every query, which
+  the kernel's model before the repairs (`repaired=False`) fails by a
+  whole turn on both shapes; and queries 1e-3 to 1e-6 edge lengths from
+  an edge of large triangles, where the model is within 1e-5 of float64
+  and errs by over 1e-3 without the near-edge float64 terms.
 W1 itself against its plain version is in `tests/test_torch_package.py`
 (marked `cuda`) and `chip_smoke.py` phase 13.
 """
@@ -32,6 +45,7 @@ from __future__ import annotations
 import math
 import os
 import re
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -48,14 +62,15 @@ MODEL_ATOL = 1e-5  # the kernel's model against the plain version and JAX
 
 f32 = np.float32
 FLT_MIN = f32(np.finfo(np.float32).tiny)
+EPS = float(np.finfo(np.float32).eps)  # 2^-23
 HALF_PI, PI = f32(math.pi / 2), f32(math.pi)
 
 
-def _marked(path: str, comment: str) -> str:
+def _marked(path: str, comment: str, what: str = "ATAN COEFFS") -> str:
     with open(path) as fp:
         text = fp.read()
-    return text[text.index(f"{comment} BEGIN W1 ATAN COEFFS"):
-                text.index(f"{comment} END W1 ATAN COEFFS")]
+    return text[text.index(f"{comment} BEGIN W1 {what}"):
+                text.index(f"{comment} END W1 {what}")]
 
 
 def _stated_bounds():
@@ -183,7 +198,9 @@ def test_pack_faces_layout_normal_and_padding():
     packed = pack_model(a, b, c)
     assert packed.dtype == np.float32 and packed.shape == (3 * pw.W_TILE, 12)
     assert pw.W_TILE == 128 and packed.shape[0] % pw.W_TILE == 0
-    n = torch.linalg.cross(torch.from_numpy(b - a), torch.from_numpy(c - a)).numpy()
+    # the normal rounded once from float64 (the numerator bound needs it)
+    a64 = a.astype(np.float64)
+    n = np.cross(b.astype(np.float64) - a64, c.astype(np.float64) - a64).astype(f32)
     np.testing.assert_array_equal(packed[:300, 0:3], a)
     np.testing.assert_array_equal(packed[:300, 4:7], b)
     np.testing.assert_array_equal(packed[:300, 8:11], c)
@@ -195,14 +212,11 @@ def test_pack_faces_layout_normal_and_padding():
     assert pack_model(*(np.zeros((0, 3), f32),) * 3).shape == (0, 12)
 
 
-def pair_terms(q, faces, nearest: bool = True):
-    """The kernel's `pair_terms`: numerator and denominator for every
-    (query, face) pair, (Q, F) each. The numerator is v . N with v the
-    difference vector of the face vertex nearest the query (ties to A, then
-    B); `nearest=False` is the first design's a . N, which the near-vertex
-    probe must catch."""
-    q = q[:, None, :]
-    pa, pb, pc = faces[None, :, 0:4], faces[None, :, 4:8], faces[None, :, 8:12]
+def _pair_terms(q, pa, pb, pc, nearest: bool = True, repaired: bool = True):
+    """The kernel's `pair_terms` on broadcast arrays: q (..., 3), the packed
+    rows' (A, Nx), (B, Ny), (C, Nz) (..., 4) -> numerator, denominator and
+    |a||b||c|; `repaired=False` sums the denominator as the kernel did
+    before the repairs."""
     a = (pa[..., :3] - q).astype(f32)
     b = (pb[..., :3] - q).astype(f32)
     c = (pc[..., :3] - q).astype(f32)
@@ -212,7 +226,7 @@ def pair_terms(q, faces, nearest: bool = True):
                                              (u[..., 0] * v[..., 0]).astype(f32)))
 
     la, lb, lc = (np.sqrt(dot(x, x)).astype(f32) for x in (a, b, c))
-    nrm = np.stack([pa[..., 3], pb[..., 3], pc[..., 3]], axis=-1)
+    nrm = np.stack(np.broadcast_arrays(pa[..., 3], pb[..., 3], pc[..., 3]), axis=-1)
     v = a
     if nearest:
         take_b = lb < la
@@ -220,20 +234,81 @@ def pair_terms(q, faces, nearest: bool = True):
         v = np.where((lc < np.where(take_b, lb, la))[..., None], c, v)
     num = dot(v, nrm)
     ab, bc, ca = dot(a, b), dot(b, c), dot(c, a)
-    den = fma(ca, lb, fma(bc, la, fma(lc, fma(la, lb, ab), f32(0))))
-    return num, den
+    l3 = (la * lb * lc).astype(f32)
+    if repaired:
+        den = fma(ca, lb, fma(bc, la, fma(ab, lc, l3)))
+    else:
+        den = fma(ca, lb, fma(bc, la, fma(lc, fma(la, lb, ab), f32(0))))
+    return num, den, l3
 
 
-def winding_model(q, a, b, c, nearest: bool = True):
+def pair_terms(q, faces, nearest: bool = True, repaired: bool = True):
+    """The kernel's `pair_terms` for every (query, face) pair, (Q, F) each:
+    the numerator v . N with v the difference vector of the face vertex
+    nearest the query (ties to A, then B), the denominator and |a||b||c|;
+    `nearest=False` is the first design's a . N, which the near-vertex
+    probe must catch."""
+    return _pair_terms(q[:, None, :], faces[None, :, 0:4], faces[None, :, 4:8],
+                       faces[None, :, 8:12], nearest, repaired)
+
+
+def num_f64(q, pa, pb, pc):
+    """(A - q) . ((B - q) x (C - q)) in float64 (the smoke's float64
+    reference formula) on broadcast arrays."""
+    ax, ay, az = (pa[..., i] - np.asarray(q[..., i], np.float64) for i in range(3))
+    bx, by, bz = (pb[..., i] - np.asarray(q[..., i], np.float64) for i in range(3))
+    cx, cy, cz = (pc[..., i] - np.asarray(q[..., i], np.float64) for i in range(3))
+    return ax * (by * cz - bz * cy) + ay * (bz * cx - bx * cz) + az * (bx * cy - by * cx)
+
+
+def repair_terms(q, faces, num, den, l3):
+    """The general path's float64 repairs (the kernel's `repair_terms`) on
+    (Q, F) pairs: near an edge (max(|n|, |d|) <= EDGE |a||b||c|) n and d,
+    elsewhere with d < 0 and |n| <= NUM_ERR_EPS eps |v*||N| the numerator,
+    taken again in float64 as v* . ((B - A) x (C - A)), v* the exact
+    difference vector of the nearest vertex."""
+    edge = np.maximum(np.abs(num), np.abs(den)) <= f32(pw.EDGE) * l3
+    p = [faces[None, :, i:i + 4].astype(np.float64) for i in (0, 4, 8)]
+    x, y, z = (t[..., :3] - q.astype(np.float64)[:, None] for t in p)
+    xx, yy, zz = ((t * t).sum(-1) for t in (x, y, z))
+    nn = sum(t[..., 3] * t[..., 3] for t in p)
+    lim = (pw.NUM_ERR_EPS * EPS) ** 2 * np.minimum(xx, np.minimum(yy, zz)) * nn
+    sign = (den < 0) & (num.astype(np.float64) ** 2 <= lim)
+    take_y = yy < xx
+    v = np.where(take_y[..., None], y, x)
+    v = np.where((zz < np.where(take_y, yy, xx))[..., None], z, v)
+    exact = (v * np.cross(p[1][..., :3] - p[0][..., :3],
+                          p[2][..., :3] - p[0][..., :3])).sum(-1).astype(f32)
+    lx, ly, lz = (np.sqrt(t) for t in (xx, yy, zz))
+    den64 = (lx * ly * lz + (x * y).sum(-1) * lz + (y * z).sum(-1) * lx
+             + (z * x).sum(-1) * ly).astype(f32)
+    return np.where(edge | sign, exact, num), np.where(edge, den64, den)
+
+
+def pack_parent(a, b, c):
+    """`pack_faces` before the repair: N as an f32 cross product of f32
+    edges (torch's, as the parent's wrapper computed it)."""
+    packed = pack_model(a, b, c)
+    n = torch.linalg.cross(torch.from_numpy(b - a), torch.from_numpy(c - a)).numpy()
+    packed[:len(a), [3, 7, 11]] = n
+    return packed
+
+
+def winding_model(q, a, b, c, nearest: bool = True, repaired: bool = True):
     """W1's arithmetic: packed faces, per-tile f32 sums of the fused
     arctangent steps added into a running total, divided by 2 pi. One
     split (the kernel adds the splits' totals in split order, in f64). A query on
     a vertex takes that vertex's zero difference vector as v, so its
-    numerator is exactly +-0, as the plain version's is."""
-    faces = pack_model(a, b, c)
+    numerator is exactly +-0, as the plain version's is. `repaired=False`
+    is the kernel before the repairs (an f32 normal, the old denominator
+    sum, no float64 terms), which the near-plane probe must catch."""
+    faces = pack_model(a, b, c) if repaired else pack_parent(a, b, c)
     total = np.zeros(q.shape[0], f32)
     for t in range(0, faces.shape[0], pw.W_TILE):
-        num, den = pair_terms(q, faces[t:t + pw.W_TILE], nearest)
+        tile = faces[t:t + pw.W_TILE]
+        num, den, l3 = pair_terms(q, tile, nearest, repaired)
+        if repaired:
+            num, den = repair_terms(q, tile, num, den, l3)
         s = np.zeros(q.shape[0], f32)
         for f in range(num.shape[1]):
             s = add_atan2(s, num[:, f], den[:, f])
@@ -269,7 +344,7 @@ def test_padding_faces_add_exactly_zero():
     plain = 2.0 * torch.atan2(num, den)
     assert (plain == 0).all() and (den[:-1] > 0).all() and (den[-1] == 0).all()
     assert (winding_model(q, zero, zero, zero) == 0).all()
-    num, den = pair_terms(q, packed)
+    num, den, _ = pair_terms(q, packed)
     assert (num == 0).all() and (den[:-1] > 0).all() and (den[-1] == 0).all()
 
 
@@ -407,3 +482,135 @@ def test_near_vertex_probe_catches_the_a_dot_n_numerator(near_vertex_cases):
     for case in near_vertex_cases:
         err, limit, _ = _near_vertex_errors(case, nearest=False)
         assert err > limit, (case[0], err, limit)
+
+
+def test_repair_bounds_mirror_the_kernel_text():
+    cu = re.findall(r"(\w+) = (-?\d+\.\d*)f;", _marked(KERNEL, "//", "REPAIR BOUNDS"))
+    py = re.findall(r"(\w+) = (-?\d+\.\d*)\n", _marked(MIRROR, "#", "REPAIR BOUNDS"))
+    assert [(k.removeprefix("W1_"), v) for k, v in cu] == py and len(py) == 2
+    assert [float(v) for _, v in py] == [pw.NUM_ERR_EPS, pw.EDGE]
+
+
+def large_triangles(rng, n: int, radius: float = 0.3):
+    """`n` triangles with vertices drawn uniformly on a sphere: faces across
+    it, as smoke phase 13's soup."""
+    pts = rng.normal(size=(3 * n, 3))
+    pts = pts / np.linalg.norm(pts, axis=1, keepdims=True) * radius
+    return tuple(pts[i::3].astype(f32) for i in range(3))
+
+
+def inside_queries(a, b, c, faces, rng):
+    """One f32 query inside each of the faces `faces`, at a random
+    barycentric point: within f32 rounding of the face's plane."""
+    w = rng.dirichlet([1.0, 1.0, 1.0], len(faces))
+    return (w[:, :1] * a[faces].astype(np.float64) + w[:, 1:2] * b[faces]
+            + w[:, 2:] * c[faces]).astype(f32)
+
+
+def test_numerator_within_the_stated_bound():
+    """|v . N - n*| <= NUM_ERR_EPS eps |v*||N| over 200 000 pairs with the
+    query inside the face, within f32 rounding of its plane (n* the float64
+    triple product of the f32 inputs, v* the exact difference vector of the
+    nearest vertex): large faces across a sphere and small ones at random
+    places. f32 gets the sign wrong at many of them, each within the bound,
+    so the kernel's float64 step reaches every one."""
+    rng = np.random.default_rng(8)
+    tris = [np.concatenate(x) for x in zip(large_triangles(rng, 120_000),
+                                           random_small_triangles(rng, 80_000))]
+    q = inside_queries(*tris, np.arange(len(tris[0])), rng)
+    faces = pack_model(*tris)[:len(q)]
+    num, den, _ = _pair_terms(q, faces[:, 0:4], faces[:, 4:8], faces[:, 8:12])
+    exact = num_f64(q, *(faces[:, i:i + 3].astype(np.float64) for i in (0, 4, 8)))
+    near = np.min([np.linalg.norm(t.astype(np.float64) - q, axis=1) for t in tris], axis=0)
+    scale = near * np.linalg.norm(faces[:, [3, 7, 11]].astype(np.float64), axis=1)
+    err = np.abs(num.astype(np.float64) - exact) / (EPS * scale)
+    wrong = np.sign(num) != np.sign(exact)
+    assert wrong.sum() > 10_000 and (den[wrong] < 0).mean() > 0.99, (wrong.sum(),)
+    assert err.max() <= pw.NUM_ERR_EPS, err.max()
+
+
+def off_plane(q, a, b, c, faces) -> bool:
+    """Whether every query lies off its face's plane in exact arithmetic:
+    on the plane the winding number steps by one, and f32 and float64 may
+    each take either side."""
+    for qi, f in zip(q, faces):
+        x, y, z = ([Fraction(float(t[f][i])) - Fraction(float(qi[i])) for i in range(3)]
+                   for t in (a, b, c))
+        if (x[0] * (y[1] * z[2] - y[2] * z[1]) + x[1] * (y[2] * z[0] - y[0] * z[2])
+                + x[2] * (y[0] * z[1] - y[1] * z[0])) == 0:
+            return False
+    return True
+
+
+@pytest.fixture(scope="module")
+def near_plane_cases():
+    """(name, queries, a, b, c): 300 f32 queries inside faces of a closed
+    1 280-face icosphere, turned by a seeded rotation (the icosahedron's
+    symmetric faces have planes that f32 points can lie on exactly), and
+    of 1 000 large triangles across a sphere."""
+    rng = np.random.default_rng(9)
+    verts, faces = icosphere(3, 0.3)
+    rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    verts = (verts.astype(np.float64) @ rot).astype(f32)
+    cases = []
+    for name, (a, b, c) in (("icosphere", [verts[faces[:, i]] for i in range(3)]),
+                            ("large triangles", large_triangles(rng, 1000))):
+        picked = rng.choice(len(a), 300, False)
+        q = inside_queries(a, b, c, picked, rng)
+        assert off_plane(q, a, b, c, picked)
+        cases.append((name, q, a, b, c))
+    return cases
+
+
+def _near_plane_errors(case, repaired: bool):
+    _, q, a, b, c = case
+    return np.abs(winding_model(q, a, b, c, repaired=repaired) - winding_f64(q, a, b, c))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["icosphere", "large_triangles"])
+def test_kernel_model_near_a_plane(near_plane_cases, which):
+    """The near-plane probe: at queries within f32 rounding of a face's
+    plane, inside the face, the model is within W1_ATOL (1e-4) of float64
+    at every query, with no whole turn lost (the plain version, an f32
+    a . (b x c), is not held here: it loses turns as the JAX package does)."""
+    err = _near_plane_errors(near_plane_cases[which], repaired=True)
+    assert err.max() <= 1e-4, err.max()
+
+
+def test_near_plane_probe_catches_the_parent_model(near_plane_cases):
+    """The probe is sharp: the kernel before the repair (f32 normal, no
+    float64 numerator) loses a whole turn on both shapes."""
+    for case in near_plane_cases:
+        err = _near_plane_errors(case, repaired=False)
+        assert err.max() > 0.5, (case[0], err.max())
+
+
+@pytest.fixture(scope="module")
+def near_edge_case():
+    """(queries, a, b, c): 1 000 large triangles across a sphere and 240 f32
+    queries 1e-3 to 1e-6 edge lengths from a random point of an edge of one
+    of them, in a random direction across the edge."""
+    rng = np.random.default_rng(10)
+    a, b, c = large_triangles(rng, 1000)
+    out = []
+    for f in rng.choice(len(a), 60, replace=False):
+        p, r = (x[f].astype(np.float64) for x in rng.permutation([a, b, c])[:2])
+        e = r - p
+        side = np.cross(e, rng.normal(size=3))
+        side /= np.linalg.norm(side)
+        at = p + rng.uniform(0.1, 0.9) * e
+        for t in (1e-3, 1e-4, 1e-5, 1e-6):
+            out.append(at + t * np.linalg.norm(e) * side)
+    return np.asarray(out, f32), a, b, c
+
+
+def test_kernel_model_near_an_edge(near_edge_case, monkeypatch):
+    """Near an edge n and d both cancel in f32: without the float64 terms
+    (EDGE = 0) the model errs by over 1e-3 there; with them it is within
+    1e-5 of float64 at every query."""
+    q, a, b, c = near_edge_case
+    ref = winding_f64(q, a, b, c)
+    err = np.abs(winding_model(q, a, b, c) - ref).max()
+    monkeypatch.setattr(pw, "EDGE", 0.0)
+    err_f32 = np.abs(winding_model(q, a, b, c) - ref).max()
+    assert err <= 1e-5 and err_f32 > 1e-3, (err, err_f32)

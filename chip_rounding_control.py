@@ -8,12 +8,14 @@ Runs `chip_smoke.py` (with a short reconstruction, without the campaign
 phase) on this checkout and on
 copies of it in which one step of a kernel is removed: a rounding step of
 the bf16 K3-K5 epilogues, a term or rounding of the f32 K3-K5's 3xTF32
-products, or a term, guard or choice of W1's arithmetic. It prints
-each run's kernel check lines and exit code. The limits are sound where the
-unchanged run passes and each copy fails the checks of the kernel it
-changes (for the 3xTF32 copies of `mma_steps_tf32x3`, whose products the
-f32 K3 at latent 256, K4 and K5 share, the f32 checks of each must fail;
-for those of `mma_regs_tf32x3`, the f32 latent-32 K3's). `--only`
+products, or a term, guard, choice or float64 repair of W1's arithmetic.
+It prints each run's kernel check lines and exit code. The limits are
+sound where the unchanged run passes and each copy fails the checks of the
+kernel it changes (for the 3xTF32 copies of `mma_steps_tf32x3`, whose
+products the f32 K3 at latent 256, K4 and K5 share, the f32 checks of
+each must fail; for those of `mma_regs_tf32x3`, the f32 latent-32 K3's;
+for W1's near-plane repair and its bound, a line of the near-plane probe;
+for its near-edge repair, a seeded soup's float64 check). `--only`
 runs the mutants whose name holds TEXT. Needs one CUDA card; the copies
 live in a temporary directory that is removed at the end.
 """
@@ -34,6 +36,9 @@ SMOKE_ARGS = ["--resolution", "33", "--passes", "1", "--refine", "1", "--no-camp
 # latent-32 K3, whose register-fed products are `mma_regs_tf32x3`'s
 F32_CHECKS = ("# K3 decoder_tail f32 ", "# K4 pointnet_trunk f32 ", "# K5 pointnet_head f32 ")
 L32_F32_CHECKS = ("# K3 decoder_tail L=32 k=64 f32 ",)
+# W1's near-plane probe (every line of it) and its seeded soups (any seed)
+W1_PLANE_CHECKS = ("# W1 winding 2048 queries within f32 rounding of the planes of ",)
+W1_SOUP_CHECKS = ("# W1 winding 2048 cube samples x 200000 large triangles, seed ",)
 THREE_TERMS = (
     "#pragma unroll\n"
     "  for (int kk = 0; kk < 2; ++kk) {\n"
@@ -127,13 +132,25 @@ MUTANTS = {
         "const float hi = fmaxf(an, ad);"),
     "W1 numerator of a query on or near C not taken from C (a . N rounds there)": (
         "ppsurf_tpu_torch/csrc/winding.cu",
-        "  if (lc < lv) { vx = cx; vy = cy; vz = cz; }\n",
+        "  n = lc < fminf(la, lb) ? nc : n;\n",
         ""),
     "W1 numerator a . N for every query (the first design's, near B and C)": (
         "ppsurf_tpu_torch/csrc/winding.cu",
-        "  if (lb < lv) { vx = bx; vy = by; vz = bz; lv = lb; }\n"
-        "  if (lc < lv) { vx = cx; vy = cy; vz = cz; }\n",
-        ""),
+        "  n = lb < la ? nb : na;\n"
+        "  n = lc < fminf(la, lb) ? nc : n;\n",
+        "  n = na;\n"),
+    "W1 near-plane numerator not taken again in float64 (its f32 sign kept)": (
+        "ppsurf_tpu_torch/csrc/winding.cu",
+        "          if (edge || d[j] < 0.f) t = repair_terms(",
+        "          if (edge) t = repair_terms(", W1_PLANE_CHECKS),
+    "W1 numerator bound shrunk 16x (3 eps to 3/16 eps)": (
+        "ppsurf_tpu_torch/csrc/winding.cu",
+        "constexpr float W1_NUM_ERR_EPS = 3.0f;",
+        "constexpr float W1_NUM_ERR_EPS = 0.1875f;", W1_PLANE_CHECKS),
+    "W1 near-edge terms not taken in float64": (
+        "ppsurf_tpu_torch/csrc/winding.cu",
+        "          const bool edge = fmaxf(fabsf(n[j]), fabsf(d[j])) <= W1_EDGE * l3[j];",
+        "          const bool edge = false;", W1_SOUP_CHECKS),
 }
 # what chip_smoke.py needs of the checkout
 NEEDED = ("chip_smoke.py", "ppsurf_tpu_torch", "native", "models_pretrained", "configs")

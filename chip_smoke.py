@@ -126,12 +126,17 @@ In order, it:
     (a closed icosphere, small random triangles) under the same limits; W1
     no further than twice its plain version (or 1e-5) from a float64
     winding number on 2048 of the samples, on the near-vertex queries, and
-    on a soup of large triangles where f32 cancels; W1's time (CUDA events, median of
+    on 48 soups of 200 000 large triangles (seeds 0-47, each its own numpy
+    generator) where f32 cancels; W1 within 1e-4 of float64 alone at 4096
+    f32 queries inside faces (`near_plane_cases`: within f32 rounding of
+    the face's plane, where the plain version can lose a whole turn); W1's
+    time (CUDA events, median of
     5) and the plain version's (one call), its bound, the SFU floor of its
     MUFU operations (3 square roots and a reciprocal a pair) and the SASS
     instructions its pair loop issues a pair (with --w1-baseline FILE,
-    also those of an earlier W1 built from FILE, and the two timed
-    in turns at the production shape); then scores the 50NN mesh against the ground truth
+    also those of an earlier W1 built from FILE, the two timed
+    in turns at the production shape, and the earlier W1's float64 errors
+    on the soups and the probe, with no limit); then scores the 50NN mesh against the ground truth
     (Chamfer, IoU, F1, normal error, seconds each; W1 must launch 4 times),
     the ground truth meshed at res 129 (IoU and F1 at least 0.99) and the
     ground truth against itself (Chamfer 0, IoU 1, F1 1 exactly, normal
@@ -1067,6 +1072,9 @@ SCORE_SAMPLES = 100000
 GT_RESOLUTION = 257
 SCORE_TABLES = ("chamfer_distance", "f1", "iou", "normal_error")
 W1_ATOL, W1_BAND = 1e-4, 1e-3
+# the seeds of `large_soup`s W1 is held to float64 on: they hold both kinds
+# of pair that f32 cannot decide (`winding_checks`)
+SOUP_SEEDS = range(48)
 W1_OPS_PER_PAIR = 64
 # the design's SFU operations a pair: three square roots, one reciprocal
 W1_MUFU_PER_PAIR = 4
@@ -1161,8 +1169,9 @@ def w1_baseline(path: str):
     """An earlier build of W1 from its `winding.cu` at `path`, with this
     one's C entry (queries, packed faces, partial, out, nq, tiles, splits,
     stream): nvcc with the port's flags into a temporary directory. Returns
-    the winding function on `ops/winding.py`'s launch rule and the build's
-    SASS."""
+    the winding function on `ops/winding.py`'s launch rule, with the
+    normals packed as an f32 cross product, as earlier builds took them, and the
+    build's SASS."""
     import ctypes
     import shutil
 
@@ -1184,7 +1193,9 @@ def w1_baseline(path: str):
 
     def winding_baseline(q, a, b, c):
         nq = q.shape[0]
+        # the normals as every earlier W1 packed them: an f32 cross product
         faces = pack_faces(a, b, c)
+        faces[:a.shape[0], 3::4] = torch.linalg.cross(b - a, c - a)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         tiles = faces.shape[0] // W_TILE
         splits = max(1, min(tiles, -(-sms * BLOCKS_PER_SM // -(-nq // W_BLOCK_QUERIES))))
@@ -1277,6 +1288,53 @@ def near_vertex_cases() -> dict:
     return out
 
 
+def large_soup(seed: int, n: int = 200000, radius: float = 0.3):
+    """`n` triangles with vertices drawn uniformly on a sphere (a soup of
+    large triangles across it), from its own numpy generator: no draw
+    elsewhere in the smoke moves it. (a, b, c) f32."""
+    import numpy as np
+
+    pts = np.random.default_rng(seed).standard_normal((3 * n, 3))
+    pts = (pts / np.linalg.norm(pts, axis=1, keepdims=True) * radius).astype(np.float32)
+    return [pts[i::3] for i in range(3)]
+
+
+def near_plane_cases() -> dict:
+    """name -> (queries, a, b, c): 20 000 large triangles across a sphere
+    (`large_soup`) and a closed 5 120-face icosphere turned by a seeded
+    rotation (the icosahedron's symmetric faces have planes that f32 points
+    lie on exactly), each with one f32 query inside each of 2048 of its
+    faces at a random barycentric point: within f32 rounding of the face's
+    plane, where the numerator's sign alone picks a turn. Fails if a query
+    lies on its face's plane in exact arithmetic (the winding number steps
+    there)."""
+    from fractions import Fraction
+
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    verts, faces = icosphere(4, 0.3)
+    rot, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    verts = (verts.astype(np.float64) @ rot).astype(np.float32)
+    cases = {"20000 large triangles": large_soup(1000, 20000),
+             "a 5120-face icosphere": [verts[faces[:, i]] for i in range(3)]}
+    out = {}
+    for name, (a, b, c) in cases.items():
+        f = rng.choice(a.shape[0], 2048, replace=False)
+        w = rng.dirichlet([1.0, 1.0, 1.0], 2048)
+        qs = (w[:, :1] * a[f].astype(np.float64) + w[:, 1:2] * b[f]
+              + w[:, 2:] * c[f]).astype(np.float32)
+        for qi, fi in zip(qs, f):
+            x, y, z = ([Fraction(float(t[fi][i])) - Fraction(float(qi[i])) for i in range(3)]
+                       for t in (a, b, c))
+            if (x[0] * (y[1] * z[2] - y[2] * z[1]) + x[1] * (y[2] * z[0] - y[0] * z[2])
+                    + x[2] * (y[0] * z[1] - y[1] * z[0])) == 0:
+                fail(f"near_plane_cases: a query of {name} lies on its face's plane")
+        out[name] = (qs, a, b, c)
+    return out
+
+
+
 def winding_checks(check, results, gen, dev, mesh, sass: str,
                    baseline: typing.Optional[str] = None) -> None:
     """W1 against its plain version on the card: the production shape (the
@@ -1285,11 +1343,13 @@ def winding_checks(check, results, gen, dev, mesh, sass: str,
     vertices, query counts no block divides and queries near a face's B or
     C (`near_vertex_cases`). |w - plain| <= W1_ATOL, and the inside masks
     equal wherever |plain - 0.5| > W1_BAND. On 2048 of the samples, the
-    near-vertex queries and a soup of large triangles, W1 against float64. Prints
+    near-vertex queries and the soups of large triangles (`large_soup`,
+    SOUP_SEEDS), W1 against float64; at queries within f32 rounding of a
+    face's plane (`near_plane_cases`), W1 within W1_ATOL of float64. Prints
     the SASS instructions of the pair loop a pair (`w1_pair_sass`); with
-    `baseline` (an earlier winding.cu), that build's too, and the
+    `baseline` (an earlier winding.cu), that build's too, the
     two timed in turns at the production shape (baseline, this tree, this tree,
-    baseline)."""
+    baseline), and the baseline's float64 errors on the soups and the probe."""
     import numpy as np
     import torch
 
@@ -1383,17 +1443,39 @@ def winding_checks(check, results, gen, dev, mesh, sass: str,
         compare(f"{qq.shape[0]} queries near vertices of {name}", w_n, p_n)
         against_f64(f"{qq.shape[0]} queries near vertices of {name}", w_n, p_n,
                     winding_f64(qq, *tt))
-    # a soup of large triangles across a sphere: queries near their planes
-    # cancel in f32 in both versions, so W1 is held to float64 there
-    pts = torch.randn(3 * 200000, 3, generator=gen, device=dev)
-    pts = pts / pts.norm(dim=1, keepdim=True) * 0.3
-    soup = [pts[i::3].contiguous() for i in range(3)]
+    # soups of large triangles across a sphere, each from its own seed:
+    # queries near their planes and edges cancel in f32 in both versions, so
+    # W1 is held to float64 there (in f32 alone, W1 loses a whole turn near
+    # a plane on seeds 4, 11, 19 and 20 and errs over twice the plain
+    # version near an edge on 17, 22, 32 and 35)
     qs = q[:2048]
-    w_s, p_s = winding(qs, *soup), winding_plain(qs, *soup)
-    print(f"# W1 winding 2048 cube samples x a soup of 200000 large triangles: max "
-          f"|W1 - plain| {float((w_s - p_s).abs().max()):.3e}", flush=True)
-    against_f64("2048 cube samples x a soup of 200000 large triangles", w_s, p_s,
-                winding_f64(qs, *soup))
+    base_f64 = []
+    for seed in SOUP_SEEDS:
+        soup = [torch.from_numpy(t).to(dev) for t in large_soup(seed)]
+        ref = winding_f64(qs, *soup)
+        against_f64(f"2048 cube samples x 200000 large triangles, seed {seed}",
+                    winding(qs, *soup), winding_plain(qs, *soup), ref)
+        if baseline:
+            base_f64.append(float((winding_base(qs, *soup).double() - ref).abs().max()))
+    if baseline:
+        print("# W1 baseline against float64 on the soups (no limit): " + ", ".join(
+            f"seed {seed} {e:.3e}" for seed, e in zip(SOUP_SEEDS, base_f64)), flush=True)
+    # f32 queries inside faces, within f32 rounding of their planes: the
+    # numerator's sign picks a whole turn, which the plain version (the JAX
+    # package's formula) can lose; W1 is held to float64 alone
+    for name, (qq, *tt) in near_plane_cases().items():
+        qq, tt = torch.from_numpy(qq).to(dev), [torch.from_numpy(t).to(dev) for t in tt]
+        ref = winding_f64(qq, *tt)
+        ep = (winding_plain(qq, *tt).double() - ref).abs()
+        note = (f"; plain version {float(ep.max()):.3e}, a whole turn off at "
+                f"{int((ep > 0.5).sum())} queries (no limit)")
+        if baseline:
+            eb = (winding_base(qq, *tt).double() - ref).abs()
+            note += (f"; baseline {float(eb.max()):.3e}, a whole turn off at "
+                     f"{int((eb > 0.5).sum())} queries (no limit)")
+        check(f"W1 winding {qq.shape[0]} queries within f32 rounding of the planes of {name} "
+              "against float64", float((winding(qq, *tt).double() - ref).abs().max()), W1_ATOL,
+              note=note)
 
 
 def scoring_phase(check, results, tmp: str, mesh, gt) -> None:

@@ -283,17 +283,30 @@ def pointnet_head_plain(x2: torch.Tensor, t: PointNetTables) -> torch.Tensor:
     return attention_pool_plain(logit, value, t.dt)
 
 
-def stn_apply(pooled: torch.Tensor, b: torch.Tensor, t: PointNetTables) -> torch.Tensor:
+def pad_rows(x: torch.Tensor, rows: typing.Optional[int]) -> torch.Tensor:
+    """x with zero rows appended up to `rows` (x itself where None)."""
+    if rows is None or rows == x.shape[0]:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+def stn_apply(pooled: torch.Tensor, b: torch.Tensor, t: PointNetTables,
+              rows: typing.Optional[int] = None) -> torch.Tensor:
     """STN head -> (C, 64, 64) transform, applied to b (C, P, 64) -> x2.
 
     Plain matmuls, as the JAX package leaves this stage to XLA
-    (`pointnet_pallas.py:207-219`)."""
+    (`pointnet_pallas.py:207-219`). rows (>= C), where given: the head's
+    three products run on that many rows, `pooled` padded with zeros.
+    cuBLAS picks its algorithm by the row count, and some of its
+    algorithms split the sum, so at a fixed count a patch's transform
+    does not depend on how many patches share the call (the batched
+    product that applies it does not vary so on the card)."""
     dt, s = t.dt, t.stn
-    h = pooled
+    h = pad_rows(pooled, rows)
     for name in ("fc1", "fc2"):
         h = dense(h, s[f"{name}_w"], s[f"{name}_b"], dt)
         h = torch.relu((h.float() * s[f"{name}_g"] + s[f"{name}_c"]).to(dt))
-    tm = dense(h, s["fc3_w"], s["fc3_b"], dt)
+    tm = dense(h, s["fc3_w"], s["fc3_b"], dt)[:pooled.shape[0]]
     trans = (tm.float() + s["eye"]).to(dt).reshape(-1, 64, 64)
     return torch.matmul(b.float(), trans.float().transpose(1, 2)).to(dt)
 
@@ -363,7 +376,9 @@ def _check(t: PointNetTables, p: int, name: str, data: typing.Dict[str, torch.Te
     kernels.check_cuda_args(name, tensors, dtypes)
 
 
-def pointnet_att(patches: torch.Tensor, t: PointNetTables) -> torch.Tensor:
-    """(C, P, 3) patch-space points -> (C, 256) features: K4, STN, K5."""
+def pointnet_att(patches: torch.Tensor, t: PointNetTables,
+                 rows: typing.Optional[int] = None) -> torch.Tensor:
+    """(C, P, 3) patch-space points -> (C, 256) features: K4, STN, K5;
+    `rows` as `stn_apply`'s."""
     b, pooled = pointnet_trunk(patches, t)
-    return pointnet_head(stn_apply(pooled, b, t), t)
+    return pointnet_head(stn_apply(pooled, b, t, rows), t)

@@ -53,6 +53,11 @@ def create_volume_region_growing(
     out_value: float = 1.0,
     progress: typing.Optional[typing.Callable[[str], None]] = None,
     use_native: bool = True,
+    prefill_radius: int = 0,
+    prefill_period: int = 2,
+    prefill_start: int = 4,
+    prefill_min_band: int = 4096,
+    stats: typing.Optional[typing.Dict[str, int]] = None,
 ) -> typing.Tuple[np.ndarray, float, float]:
     """Evaluate the field on near-surface voxels by region growing.
 
@@ -60,6 +65,22 @@ def create_volume_region_growing(
     bmin_pad). Semantics follow reference `_create_volume`
     (`poco_utils.py:178-254`): seed at input-point voxels, dilate +-2,
     evaluate, grow across sign changes until the frontier is empty.
+
+    prefill_radius > dilation_size enables the speculative prefill of
+    `ppsurf_tpu/recon/engine.py:130-270`: from round `prefill_start` on,
+    every `prefill_period` rounds, the voxels within +-prefill_radius of
+    the next frontier that hold no value yet are evaluated in one call
+    into a value cache (f32 values and a mask), and the rounds read the
+    cache before they call the field. A band of fewer than
+    `prefill_min_band` fresh voxels is skipped. Only the grower's rounds
+    write `volume`, so the volume and the rounds are those of prefill off
+    wherever the field gives a query the same value in any batch; only
+    the batching of the field's calls changes. Keep prefill_radius <=
+    dilation_size * prefill_period: the next `prefill_period` rounds reach
+    no further.
+
+    stats, where given, receives the rounds ("rounds"), the bands
+    evaluated ("prefill_bands") and their voxels ("prefill_voxels").
     """
     bmin = float(input_points.min())
     bmax = float(input_points.max())
@@ -81,6 +102,57 @@ def create_volume_region_growing(
         rg = native.RegionGrowState(volume, dilation_size)
     unseen = None if rg is not None else np.ones(shape, dtype=bool)
 
+    def grid_field(coords: np.ndarray) -> np.ndarray:
+        return eval_field(coords.astype(np.float32) * step + bmin_pad)
+
+    prefill = prefill_radius > dilation_size
+    if prefill:
+        cache_vals = np.zeros(shape, dtype=np.float32)
+        cache_mask = np.zeros(shape, dtype=bool)
+        pf_rg = native.RegionGrowState(volume, prefill_radius) if rg is not None else None
+    counts = {} if stats is None else stats
+    counts.update(rounds=0, prefill_bands=0, prefill_voxels=0)
+
+    def eval_coords(coords: np.ndarray) -> np.ndarray:
+        """The field at voxel coords, through the prefill cache when on."""
+        if not prefill:
+            return grid_field(coords).astype(np.float64)
+        hit = cache_mask[coords[:, 0], coords[:, 1], coords[:, 2]]
+        vals = np.empty(coords.shape[0], np.float64)
+        vals[hit] = cache_vals[coords[hit, 0], coords[hit, 1], coords[hit, 2]]
+        miss = coords[~hit]
+        if miss.shape[0]:
+            mv = grid_field(miss)
+            vals[~hit] = mv
+            cache_vals[miss[:, 0], miss[:, 1], miss[:, 2]] = mv
+            cache_mask[miss[:, 0], miss[:, 1], miss[:, 2]] = True
+        return vals
+
+    def maybe_prefill(frontier_next: np.ndarray, rounds: int) -> None:
+        """Evaluate the band around the next frontier into the cache (the
+        voxels the coming `prefill_period` rounds can reach)."""
+        if not (prefill and rounds >= prefill_start
+                and (rounds - prefill_start) % prefill_period == 0
+                and frontier_next.shape[0]):
+            return
+        if pf_rg is not None:
+            band = pf_rg.dilate_unevaluated(frontier_next)
+        else:
+            fr = np.zeros(shape, dtype=bool)
+            fr[frontier_next[:, 0], frontier_next[:, 1], frontier_next[:, 2]] = True
+            reg = dilate_mask(fr, prefill_radius)
+            reg &= ~np.isfinite(volume)
+            band = np.argwhere(reg).astype(np.int32)
+        fresh = band[~cache_mask[band[:, 0], band[:, 1], band[:, 2]]]
+        if not band.shape[0] or fresh.shape[0] < prefill_min_band:
+            return
+        cache_vals[fresh[:, 0], fresh[:, 1], fresh[:, 2]] = grid_field(fresh)
+        cache_mask[fresh[:, 0], fresh[:, 1], fresh[:, 2]] = True
+        counts["prefill_bands"] += 1
+        counts["prefill_voxels"] += int(fresh.shape[0])
+        if progress is not None:
+            progress(f"  prefill band: {fresh.shape[0]} voxels")
+
     rounds = 0
     if progress is not None:
         progress(f"grow seeds: {pts_ids.shape[0]} voxels")
@@ -97,16 +169,15 @@ def create_volume_region_growing(
             region &= ~np.isfinite(volume)
             coords = np.argwhere(region).astype(np.int32)
         if coords.shape[0]:
-            vals_r = eval_field(
-                coords.astype(np.float32) * step + bmin_pad
-            ).astype(np.float64)
-            volume[coords[:, 0], coords[:, 1], coords[:, 2]] = vals_r
+            volume[coords[:, 0], coords[:, 1], coords[:, 2]] = eval_coords(coords)
         rounds += 1
+        counts["rounds"] = rounds
         if progress is not None:
             progress(f"region-grow round {rounds}: {coords.shape[0]} voxels")
 
         if rg is not None:
             pts_ids = rg.next_frontier(pts_ids)
+            maybe_prefill(pts_ids, rounds)
             continue
 
         unseen[pts_ids[:, 0], pts_ids[:, 1], pts_ids[:, 2]] = False
@@ -132,6 +203,7 @@ def create_volume_region_growing(
                 grow_from_nonneg & (volume <= 0) & unseen
             )
         pts_ids = np.argwhere(new_mask).astype(np.int32)
+        maybe_prefill(pts_ids, rounds)
 
     # padded borders forced to out_value (`poco_utils.py:248-253`)
     if padding > 0:
@@ -223,6 +295,8 @@ def reconstruct_mesh(
     progress: typing.Optional[typing.Callable[[str], None]] = None,
     refine_device: typing.Optional[typing.Callable] = None,
     timings: typing.Optional[typing.Dict[str, float]] = None,
+    prefill_radius: int = 0,
+    stats: typing.Optional[typing.Dict[str, int]] = None,
 ) -> typing.Optional[Mesh]:
     """Full reconstruction (reference
     `export_mesh_and_refine_vertices_region_growing_v3`).
@@ -231,6 +305,8 @@ def reconstruct_mesh(
     (FieldEvaluator.refine_bisection) — same results, no host loop.
     timings: optional dict that receives host-clock seconds per phase
     ("grow", "mesh", "refine", "clean").
+    prefill_radius, stats: the grower's speculative prefill and its counts
+    (`create_volume_region_growing`) — same volume, other field batches.
     """
     import time
 
@@ -239,6 +315,7 @@ def reconstruct_mesh(
     volume, step, bmin_pad = create_volume_region_growing(
         eval_field, input_points, resolution, padding=padding,
         dilation_size=dilation_size, out_value=out_value, progress=progress,
+        prefill_radius=prefill_radius, stats=stats,
     )
     t1 = time.perf_counter()
     marks["grow"] = t1 - t0

@@ -57,7 +57,7 @@ from ppsurf_tpu_torch.ops.graph import Draws, build_fkaconv_graph, draw_graph
 from ppsurf_tpu_torch.ops.knn import dist2_rows, knn, knn_blocks
 from ppsurf_tpu_torch.ops.morton import morton_order
 from ppsurf_tpu_torch.ops.patches import patch_space
-from ppsurf_tpu_torch.ops.pointnet_att import pointnet_att, pointnet_tables
+from ppsurf_tpu_torch.ops.pointnet_att import pad_rows, pointnet_att, pointnet_tables
 from ppsurf_tpu_torch.ops.topk_rows import topk_rows
 from ppsurf_tpu_torch.train.model import ModelSpec
 
@@ -195,6 +195,11 @@ class FieldEvaluator:
         self.patch_k = min(spec.num_pts_local, pts.shape[0]) if spec.is_ppsurf else 0
         self.stat_queries = 0
         self.stat_cert_failed = 0  # vertices the candidate path handed back
+        # on the card the PyTorch products of a chunk (fc8, the STN head,
+        # the MLP) run on `chunk` rows, the tail chunk padded: cuBLAS picks
+        # its algorithm by the row count, so a query's value would
+        # otherwise depend on the size of the call that holds it
+        self.fixed_rows = self.chunk if self.device.type == "cuda" else None
 
         self._bbox = (pts.min(axis=0), pts.max(axis=0))
         order = morton_order(pts, *self._bbox)
@@ -236,14 +241,16 @@ class FieldEvaluator:
                 ids = patch_ids[:, : self.k].contiguous()
         elif ids is None:
             ids = knn(rep.pts, q, self.k, blocks=rep.blocks)
-        pooled = decoder_tail(rep.latents, rep.pts, q, ids, rep.decoder)
+        rows = self.fixed_rows
+        pooled = pad_rows(decoder_tail(rep.latents, rep.pts, q, ids, rep.decoder), rows)
         data = {"feat_proj": rep.net.projection.fc8(pooled)[None]}
         if self.spec.is_ppsurf:
             if patch_ids is None:
                 patch_ids = ids[:, : self.patch_k]
             patches = patch_space(rep.pts[patch_ids], q)
-            data["feat_pn"] = pointnet_att(patches.to(self.dtype), rep.point_net)[None]
-        logits = rep.net.from_latent(data)[0]
+            feat_pn = pointnet_att(patches.to(self.dtype), rep.point_net, rows)
+            data["feat_pn"] = pad_rows(feat_pn, rows)[None]
+        logits = rep.net.from_latent(data)[0][:q.shape[0]]
         probs = torch.softmax(logits.float(), dim=-1)
         # p(class 0) - p(class 1): zero-crossing is the surface
         # (`poco_utils.py:79-81`)

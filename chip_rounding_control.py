@@ -153,7 +153,7 @@ MUTANTS = {
         "          const bool edge = false;", W1_SOUP_CHECKS),
 }
 # what chip_smoke.py needs of the checkout
-NEEDED = ("chip_smoke.py", "ppsurf_tpu_torch", "native", "models_pretrained", "configs")
+NEEDED = ("chip_smoke.py", "bench_torch.py", "ppsurf_tpu_torch", "native", "models_pretrained", "configs")
 SKIP = shutil.ignore_patterns("_build", "__pycache__")
 
 

@@ -181,12 +181,28 @@ In order, it:
 19. trains POCO with `cli fit` at full width (latent 32, k=64, batch 10,
     bf16) for 2 epochs on phase 12's solids: finite losses, `last.pt`, K1
     14 times a cloud, the median step time and peak memory;
-20. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
+20. runs the benchmark twin as the driver runs it, `python3 bench_torch.py
+    --reps 3` (the smoke's --resolution, --passes and --refine passed on
+    where they differ from the defaults), in its own process: exit 0, a
+    last line of exactly `bench.py`'s four keys with the metric
+    `ppsurf50nn_e2e_reconstruction_res257` and a finite positive value,
+    and K1 (k=64 and kc=192), K2 and K3-K5 in its detail line's launches
+    of one pass; then grows phase 4's 50NN bf16 field without the
+    speculative prefill and with it (radius 4 from round 2), in turns: the
+    same volume bit for bit, at least one band, no more field calls, the
+    grow seconds and calls of both printed; and `reconstruct_mesh` with
+    prefill radius 0 and 4 gives the same mesh; and the field of 120 000
+    queries near the cloud is the same in one call and in odd batches
+    (with `FieldEvaluator.fixed_rows` off, the count that differs is
+    printed) (phases 14-19 are skipped under --no-campaign; this one is
+    not);
+21. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
 
-Phases 4, 5b, 7-11, each part of 12 and 14, each scoring of 13 and phases
-15-19 reset every kernel's launch count just before they run and read it
-just after; each fails if a kernel of its path did not launch.
+Phases 4, 5b, 7-11, each part of 12 and 14, each scoring of 13, phases
+15-19 and the benchmark of 20 reset every kernel's launch count just
+before they run and read it just after; each fails if a kernel of its
+path did not launch.
 
 Any failure exits non-zero before that last line. It needs one CUDA card
 and the repository checkout around it; it imports nothing of JAX.
@@ -206,10 +222,14 @@ import types
 import typing
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
+# phase 4's cloud (also the benchmark's, `bench_torch.py`), the H100's
+# peaks and the kernels' operation counts
+from ppsurf_tpu_torch.data.synthetic import torus_cloud  # noqa: E402
+from ppsurf_tpu_torch.ops.opcount import (  # noqa: E402
+    HEAD_MACS, PEAK_BYTES, PEAK_OPS, TRUNK_MACS, tail_macs,
+)
 
 # the field chunk's production shapes: cloud points and queries per chunk
 N_POINTS = 60031
@@ -243,23 +263,6 @@ def fail(msg: str) -> typing.NoReturn:
 
 def run(cmd):
     return subprocess.run(cmd, check=True, capture_output=True, text=True).stdout.strip()
-
-
-def torus_cloud(n: int, seed: int):
-    """n points on a torus with a sphere beside it, in the unit cube."""
-    import numpy as np
-
-    rng = np.random.RandomState(seed)
-    n_t = n * 2 // 3
-    u, v = rng.rand(2, n_t) * 2 * np.pi
-    big, small = 0.28, 0.1
-    torus = np.stack([(big + small * np.cos(v)) * np.cos(u) - 0.1,
-                      (big + small * np.cos(v)) * np.sin(u),
-                      small * np.sin(v)], axis=1)
-    d = rng.randn(n - n_t, 3)
-    sphere = d / np.linalg.norm(d, axis=1, keepdims=True) * 0.15 + [0.3, 0.0, 0.25]
-    pts = np.concatenate([torus, sphere]) + rng.randn(n, 3) * 1e-3
-    return pts.astype(np.float32)
 
 
 def torus_sdf(x, y, z):
@@ -499,15 +502,6 @@ def kernel_bounds(n_bytes: float, ops: float, tag: str) -> dict:
     fma, _ = bound_ms(n_bytes, ops, "f32")
     tc, by = bound_ms(n_bytes, 3 * ops, "tf32")
     return dict(bound_ms=tc, bound_by=by, bound_fma_ms=fma, bound_tf32x3_ms=tc)
-
-
-# multiply-adds a row of K3 at latent L (64 heads), of K4 and of K5 a point
-def tail_macs(lat: int) -> int:
-    return 3 * lat + 3 * lat * lat + lat * 64
-
-
-TRUNK_MACS = 3 * 64 + 64 * 64 + 64 * 64 + 64 * 128 + 128 * 256
-HEAD_MACS = 64 * 64 + 64 * 128 + 128 * 256 + 256 + 256 * 256
 
 
 # K5 at P > 64 runs as a cluster of ceil(P / 64) CTAs: every cluster size,
@@ -2030,6 +2024,143 @@ def poco_training_phase(tmp: str, smi: str) -> None:
         fail(f"POCO training launched K1 {knn} times, expected {want}")
 
 
+# phase 20: the port's bench.py twin as its own process, then the grower's
+# speculative prefill on phase 4's 50NN bf16 field
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline")
+PREFILL = dict(prefill_radius=4, prefill_start=2)
+
+
+def bench_twin_phase(args) -> None:
+    """`python3 bench_torch.py --reps 3` (with the smoke's resolution,
+    passes and refine where they differ from the defaults): exit 0, a last
+    line of `bench.py`'s four keys with a finite positive value, and K1
+    (k=64 and kc=192), K2 and K3-K5 in the detail line's launches of one
+    pass."""
+    import torch
+
+    cmd = [sys.executable, "bench_torch.py", "--reps", "3"]
+    for flag, value, default in (("--resolution", args.resolution, 257),
+                                 ("--passes", args.passes, 10), ("--refine", args.refine, 10)):
+        if value != default:
+            cmd += [flag, str(value)]
+    torch.cuda.empty_cache()  # the card's memory to the twin's process
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("# "):
+            print(f"# bench_torch: {line[2:]}", flush=True)
+    out = proc.stdout.strip().splitlines()
+    print(f"# bench_torch: {' '.join(cmd[1:])}: exit {proc.returncode} in {secs:.1f} s; last "
+          f"line {out[-1] if out else None}", flush=True)
+    if proc.returncode != 0 or not out:
+        fail(f"bench_torch.py failed: {proc.stderr[-2000:]}")
+    result = json.loads(out[-1])
+    want = f"ppsurf50nn_e2e_reconstruction_res{args.resolution}"
+    if (tuple(result) != BENCH_KEYS or result["metric"] != want
+            or not (isinstance(result["value"], float) and 0 < result["value"] < float("inf"))):
+        fail(f"bench_torch.py's last line is not {BENCH_KEYS} with {want} and a finite "
+             f"positive value: {result}")
+    detail = [json.loads(line[len("# detail: "):]) for line in proc.stderr.splitlines()
+              if line.startswith("# detail: ")]
+    missing = [k for k in PATH_KERNELS if not detail or not detail[-1]["launches"].get(k)]
+    if missing:
+        fail(f"bench_torch.py's pass did not launch {missing}")
+
+
+def prefill_phase(args, predictor, cloud) -> None:
+    """The grower on phase 4's field (`predictor`'s network, its encoding
+    with seed 0), without the prefill `PREFILL` and with it, in turns (off,
+    on, on, off): the same volume bit for bit (NaN pattern and values), at
+    least one band, no more field calls; then `reconstruct_mesh` with
+    prefill radius 0 and 4: the same mesh. A volume that differs means the
+    field gives a query other bits in another batch (`FieldEvaluator`'s
+    `fixed_rows` is there to prevent it); last, 120 000 queries in one
+    call and in odd batches: the same bits (and, printed only, how many
+    differ with `fixed_rows` off)."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch.recon.engine import create_volume_region_growing, reconstruct_mesh
+    from ppsurf_tpu_torch.recon.field import FieldEvaluator
+
+    with torch.inference_mode():
+        gen = torch.Generator(device=predictor.device).manual_seed(0)
+        latents = predictor.encoder(torch.from_numpy(cloud).to(predictor.device), generator=gen)
+        ev = FieldEvaluator(predictor.net, predictor.spec, cloud, latents)
+        runs, grow_s = {}, {"off": [], "on": []}
+        for name in ("off", "on", "on", "off"):
+            kw = PREFILL if name == "on" else {}
+            calls, stats = [], {}
+
+            def field(q, calls=calls):
+                calls.append(q.shape[0])
+                return ev(q)
+
+            with chunks_and_dtypes() as seen:
+                t0 = time.perf_counter()
+                vol = create_volume_region_growing(field, cloud, args.resolution, stats=stats,
+                                                   **kw)[0]
+                grow_s[name].append(time.perf_counter() - t0)
+            if name in runs:
+                if not np.array_equal(vol, runs[name]["vol"], equal_nan=True):
+                    fail(f"two grows with prefill {name} gave other volumes")
+                continue
+            runs[name] = dict(vol=vol, calls=len(calls), **stats)
+            print(f"# prefill {name} {kw}: {stats['rounds']} rounds, {len(calls)} field calls "
+                  f"({seen['chunks']} chunks, {sum(calls)} queries), "
+                  f"{stats['prefill_bands']} bands of {stats['prefill_voxels']} voxels",
+                  flush=True)
+        print("# prefill grow seconds in turns (off, on, on, off): off "
+              + ", ".join(f"{t:.3f}" for t in grow_s["off"]) + "; on "
+              + ", ".join(f"{t:.3f}" for t in grow_s["on"]), flush=True)
+        a, b = runs["off"]["vol"], runs["on"]["vol"]
+        same_nan = np.array_equal(np.isnan(a), np.isnan(b))
+        both = ~np.isnan(a) & ~np.isnan(b)
+        differ = int((a[both] != b[both]).sum())
+        print(f"# prefill volumes: NaN patterns equal {same_nan}, {differ} of {int(both.sum())} "
+              f"voxels differ (max |difference| "
+              f"{float(np.abs(a[both] - b[both]).max()) if both.any() else 0.0:.3e})", flush=True)
+        if not same_nan or differ:
+            fail("the prefill changed the volume: the field gives a query other bits in "
+                 "another batch")
+        if runs["on"]["prefill_bands"] < 1 or runs["on"]["calls"] > runs["off"]["calls"]:
+            fail(f"the prefill fired {runs['on']['prefill_bands']} bands and took "
+                 f"{runs['on']['calls']} field calls ({runs['off']['calls']} without)")
+        meshes = {}
+        for radius in (0, 4):
+            t0 = time.perf_counter()
+            meshes[radius] = reconstruct_mesh(ev, cloud, args.resolution,
+                                              refine_iter=predictor.spec.gen_refine_iter,
+                                              refine_device=ev.refine_bisection,
+                                              prefill_radius=radius)
+            print(f"# reconstruct_mesh prefill_radius={radius}: {time.perf_counter() - t0:.3f} s, "
+                  f"{meshes[radius].vertices.shape[0]} vertices {meshes[radius].faces.shape[0]} "
+                  "faces", flush=True)
+        if not (np.array_equal(meshes[0].faces, meshes[4].faces)
+                and np.array_equal(meshes[0].vertices, meshes[4].vertices)):
+            fail("the prefill changed the mesh")
+
+        # the premise: a query's value does not depend on the call that
+        # holds it; without `fixed_rows` (printed, not a limit) it does
+        rng = np.random.RandomState(3)
+        q = cloud[rng.randint(0, cloud.shape[0], 120000)] + rng.randn(120000, 3) * 0.01
+        q = q.astype(np.float32)
+        for rows in (None, ev.fixed_rows):
+            ev.fixed_rows = rows
+            whole = ev(q)
+            for sizes in ((7, 1000, 50049), (37, 129, 4096, 20000), (1, 1, 1, 300)):
+                bounds = np.cumsum((0,) + sizes)
+                split = np.concatenate([ev(q[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+                                       + [ev(q[bounds[-1]:])])
+                differ = int((split != whole).sum())
+                print(f"# field of {q.shape[0]} queries in one call and in calls of {sizes} and "
+                      f"the rest, fixed_rows {rows}: {differ} values differ (max |difference| "
+                      f"{float(np.abs(split - whole).max()):.3e})", flush=True)
+                if rows is not None and differ:
+                    fail("the field gives a query other bits in another batch")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resolution", type=int, default=257)
@@ -2051,7 +2182,6 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     if not os.path.isdir(os.path.join(HERE, "ppsurf_tpu_torch", "csrc")):
         fail("ppsurf_tpu_torch/ is not beside this script: run it from a checkout")
-    sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2949,6 +3079,13 @@ def main() -> int:
         print(f"# {phase.__name__}: phase {number} took {time.perf_counter() - t0:.1f} s",
               flush=True)
     train_tmp.cleanup()
+
+    # ---- 20. the benchmark twin as its own process; the grower's prefill ----
+    t0 = time.perf_counter()
+    bench_twin_phase(args)
+    prefill_phase(args, predictor, cloud)
+    print(f"# benchmark and prefill: phase 20 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in

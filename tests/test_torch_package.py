@@ -2,8 +2,8 @@
 
 - no file of the port imports jax, flax or the JAX package, nor pandas,
   PIL or openpyxl (the machine with the card has none of them),
-  statically or at run time (package, chip_smoke.py and
-  chip_rounding_control.py);
+  statically or at run time (package, chip_smoke.py,
+  chip_rounding_control.py and bench_torch.py);
 - entry points (the predictor, the trainer, the scoring: `points_inside`,
   `evaluate_reconstructions`, `make_evaluation`) default to CUDA and
   raise where there is none;
@@ -38,7 +38,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ppsurf_tpu", "pandas", 
 
 
 def _port_files():
-    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_rounding_control.py")]
+    files = [os.path.join(REPO, n)
+             for n in ("chip_smoke.py", "chip_rounding_control.py", "bench_torch.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -66,7 +67,8 @@ MODULES = ("cli.py", "rec.py", "data/datasets.py", "models/poco.py", "convert/in
            "figures/render_figures.py", "figures/fix_imls.py",
            "campaigns/full_run_pps.py", "campaigns/full_run_pps_mini.py",
            "campaigns/full_run_poco.py", "campaigns/full_run_poco_mini.py",
-           "parallel/mesh.py", "utils/profiling.py", "tools/dryrun_multihost.py")
+           "parallel/mesh.py", "utils/profiling.py", "tools/dryrun_multihost.py",
+           "tools/bench.py", "ops/opcount.py", "data/synthetic.py")
 
 
 def test_no_file_of_the_port_imports_jax():
@@ -88,7 +90,7 @@ def test_importing_the_port_loads_no_jax():
         "import ppsurf_tpu_torch\n"
         "for m in pkgutil.walk_packages(ppsurf_tpu_torch.__path__, 'ppsurf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, chip_rounding_control\n"
+        "import chip_smoke, chip_rounding_control, bench_torch\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(len([m for m in sys.modules if m.startswith('ppsurf_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -1,0 +1,7 @@
+"""Seconds an object in the grow phase (the harness's host-clock span,
+ending with its data on the host), the mean over the window's objects."""
+
+
+def read(run):
+    vals = [o["timings"]["grow"] for o in run.objects if "grow" in o["timings"]]
+    return sum(vals) / len(vals) if vals else None

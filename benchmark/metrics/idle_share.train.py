@@ -1,0 +1,9 @@
+"""The share of the traced training window in which no operation ran on
+the card (one minus the union of the device's activity intervals from the
+profiler's trace over the window), in percent."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0 or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)

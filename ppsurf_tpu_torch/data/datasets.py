@@ -29,6 +29,7 @@ import numpy as np
 
 from ppsurf_tpu_torch.io.point_cloud import load_pts, pre_process_pts
 from ppsurf_tpu_torch.utils import math3d
+from ppsurf_tpu_torch.utils.spans import span
 
 
 # --- directory conventions (reference `occupancy_data_module.py:19-86`) ---
@@ -335,7 +336,8 @@ class _PrefetchIterator:
         if not self._futures:
             self._finalizer()
             raise StopIteration
-        batch = self._futures.popleft().result()
+        with span("data.wait"):
+            batch = self._futures.popleft().result()
         self._top_up()
         return batch
 

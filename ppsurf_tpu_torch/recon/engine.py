@@ -20,6 +20,7 @@ import numpy as np
 from ppsurf_tpu_torch.io.ply import Mesh
 from ppsurf_tpu_torch.recon.marching_cubes import marching_cubes
 from ppsurf_tpu_torch.recon.mesh_ops import clean_simple, remove_small_connected_components
+from ppsurf_tpu_torch.utils.spans import span
 
 
 def dilate_mask(mask: np.ndarray, size: int) -> np.ndarray:
@@ -304,46 +305,39 @@ def reconstruct_mesh(
     refine_device: optional evaluator-side bisection
     (FieldEvaluator.refine_bisection) — same results, no host loop.
     timings: optional dict that receives host-clock seconds per phase
-    ("grow", "mesh", "refine", "clean").
+    ("grow", "mesh", "refine", "clean"), the durations of the phases'
+    spans (`utils/spans.py`).
     prefill_radius, stats: the grower's speculative prefill and its counts
     (`create_volume_region_growing`) — same volume, other field batches.
     """
-    import time
+    with span("grow", sink=timings):
+        volume, step, bmin_pad = create_volume_region_growing(
+            eval_field, input_points, resolution, padding=padding,
+            dilation_size=dilation_size, out_value=out_value, progress=progress,
+            prefill_radius=prefill_radius, stats=stats,
+        )
 
-    marks = {} if timings is None else timings
-    t0 = time.perf_counter()
-    volume, step, bmin_pad = create_volume_region_growing(
-        eval_field, input_points, resolution, padding=padding,
-        dilation_size=dilation_size, out_value=out_value, progress=progress,
-        prefill_radius=prefill_radius, stats=stats,
-    )
-    t1 = time.perf_counter()
-    marks["grow"] = t1 - t0
-
-    finite = volume[np.isfinite(volume)]
-    if finite.size == 0 or not (finite.max() > mc_value > finite.min()):
-        return None  # field never crosses the iso level (`poco_utils.py:92-93`)
-
-    verts, faces = marching_cubes(volume, mc_value)
-    mesh = clean_simple(Mesh(vertices=verts, faces=faces))
-    mesh = remove_small_connected_components(mesh, num_faces=min_component_faces)
-    t2 = time.perf_counter()
-    marks["mesh"] = t2 - t1
-    if mesh.is_empty:
+    with span("mesh", sink=timings):
+        finite = volume[np.isfinite(volume)]
+        mesh = None  # where the field never crosses the iso level (`poco_utils.py:92-93`)
+        if finite.size and finite.max() > mc_value > finite.min():
+            verts, faces = marching_cubes(volume, mc_value)
+            mesh = clean_simple(Mesh(vertices=verts, faces=faces))
+            mesh = remove_small_connected_components(mesh, num_faces=min_component_faces)
+    if mesh is None or mesh.is_empty:
         return None
 
-    if refine_iter > 0:
-        world = refine_vertices(
-            mesh.vertices.astype(np.float64), volume, eval_field, step, bmin_pad,
-            refine_iter=refine_iter, progress=progress,
-            refine_device=refine_device,
-        )
-    else:
-        world = (mesh.vertices.astype(np.float64) * step + bmin_pad).astype(np.float32)
-    t3 = time.perf_counter()
-    marks["refine"] = t3 - t2
+    with span("refine", sink=timings):
+        if refine_iter > 0:
+            world = refine_vertices(
+                mesh.vertices.astype(np.float64), volume, eval_field, step, bmin_pad,
+                refine_iter=refine_iter, progress=progress,
+                refine_device=refine_device,
+            )
+        else:
+            world = (mesh.vertices.astype(np.float64) * step + bmin_pad).astype(np.float32)
 
-    mesh = clean_simple(Mesh(vertices=world, faces=mesh.faces))
-    mesh = remove_small_connected_components(mesh, num_faces=min_component_faces)
-    marks["clean"] = time.perf_counter() - t3
+    with span("clean", sink=timings):
+        mesh = clean_simple(Mesh(vertices=world, faces=mesh.faces))
+        mesh = remove_small_connected_components(mesh, num_faces=min_component_faces)
     return mesh

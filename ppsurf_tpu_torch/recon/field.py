@@ -60,6 +60,7 @@ from ppsurf_tpu_torch.ops.patches import patch_space
 from ppsurf_tpu_torch.ops.pointnet_att import pad_rows, pointnet_att, pointnet_tables
 from ppsurf_tpu_torch.ops.topk_rows import topk_rows
 from ppsurf_tpu_torch.train.model import ModelSpec
+from ppsurf_tpu_torch.utils.spans import span
 
 Transform = typing.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -143,27 +144,34 @@ class LatentEncoder:
                  generator: typing.Optional[torch.Generator] = None,
                  draws: typing.Optional[EncoderDraws] = None) -> torch.Tensor:
         """pts (N, 3) on the device -> (N, L) f32 averaged latents."""
-        n = pts.shape[0]
-        nb, s, num_chunks = self.layout(n)
-        if draws is None:
-            if generator is None:
-                raise ValueError("LatentEncoder needs a generator or draws")
-            draws = self.draw(n, generator, pts.device)
-        padded = num_chunks * s
-        perms = draws.perms.to(pts.device) % n
-        ids = torch.cat([perms, perms[:, : padded - nb]], dim=1).reshape(-1, s)
-        latent_dim = self.spec.network_latent_size
-        latent_sum = torch.zeros((n, latent_dim), dtype=torch.float32, device=pts.device)
-        counts = torch.zeros((n,), dtype=torch.float32, device=pts.device)
-        ones = torch.ones((s,), dtype=torch.float32, device=pts.device)
-        for chunk_ids, graph_draws in zip(ids, draws.graphs):
-            chunk_pts = pts[chunk_ids]
-            data = {"pts": chunk_pts[None]}
-            data.update(build_fkaconv_graph(chunk_pts, graph_draws))
-            lat = self.net.get_latent(data)[0]
-            latent_sum.index_add_(0, chunk_ids, lat.float())
-            counts.index_add_(0, chunk_ids, ones)
-        return latent_sum / torch.clamp(counts, min=1.0)[:, None]
+        with span("encode"):
+            n = pts.shape[0]
+            nb, s, num_chunks = self.layout(n)
+            if draws is None:
+                if generator is None:
+                    raise ValueError("LatentEncoder needs a generator or draws")
+                draws = self.draw(n, generator, pts.device)
+            padded = num_chunks * s
+            perms = draws.perms.to(pts.device) % n
+            ids = torch.cat([perms, perms[:, : padded - nb]], dim=1).reshape(-1, s)
+            latent_dim = self.spec.network_latent_size
+            latent_sum = torch.zeros((n, latent_dim), dtype=torch.float32, device=pts.device)
+            counts = torch.zeros((n,), dtype=torch.float32, device=pts.device)
+            ones = torch.ones((s,), dtype=torch.float32, device=pts.device)
+            for p in range(perms.shape[0]):
+                with span("encode.pass"):
+                    for c in range(p * num_chunks, (p + 1) * num_chunks):
+                        chunk_ids = ids[c]
+                        with span("encode.graph"):
+                            chunk_pts = pts[chunk_ids]
+                            data = {"pts": chunk_pts[None]}
+                            data.update(build_fkaconv_graph(chunk_pts, draws.graphs[c]))
+                        with span("encode.net"):
+                            lat = self.net.get_latent(data)[0]
+                        with span("encode.accumulate"):
+                            latent_sum.index_add_(0, chunk_ids, lat.float())
+                            counts.index_add_(0, chunk_ids, ones)
+            return latent_sum / torch.clamp(counts, min=1.0)[:, None]
 
 
 class FieldEvaluator:
@@ -278,21 +286,33 @@ class FieldEvaluator:
         if m == 0:
             return np.zeros((0,), np.float32)
         self.stat_queries += m
-        order = morton_order(queries, *self._bbox)
-        (q,) = self._sorted(queries, order=order)
-        chunks = [q[s:s + self.chunk] for s in range(0, m, self.chunk)]
-        d = len(self.replicas)
-        full = m // self.chunk
-        vals, i = [], 0
-        while d > 1 and full - i >= d:  # one full chunk a replica, in order
-            group = [self._field(rep, chunks[i + j].to(rep.device))
-                     for j, rep in enumerate(self.replicas)]
-            vals += [self._finish(v.to(self.device), chunks[i + j]) for j, v in enumerate(group)]
-            i += d
-        vals = torch.cat(vals + [self.eval_chunk(c) for c in chunks[i:]])
-        out = np.empty((m,), np.float32)
-        out[order] = vals.cpu().numpy()
-        return out
+        with span("field") as sp:
+            with span("field.sort"):
+                order = morton_order(queries, *self._bbox)
+                (q,) = self._sorted(queries, order=order)
+            chunks = [q[s:s + self.chunk] for s in range(0, m, self.chunk)]
+            sp.add(queries=m)
+            d = len(self.replicas)
+            full = m // self.chunk
+            vals, i = [], 0
+            while d > 1 and full - i >= d:  # one full chunk a replica, in order
+                group = []
+                for j, rep in enumerate(self.replicas):
+                    with span("field.chunk"):
+                        group.append(self._field(rep, chunks[i + j].to(rep.device)))
+                vals += [self._finish(v.to(self.device), chunks[i + j])
+                         for j, v in enumerate(group)]
+                i += d
+            for c in chunks[i:]:
+                with span("field.chunk"):
+                    vals.append(self.eval_chunk(c))
+            vals = torch.cat(vals)
+            with span("readback") as rb:
+                host = vals.cpu()
+                rb.add(bytes=4 * m)
+            out = np.empty((m,), np.float32)
+            out[order] = host.numpy()
+            return out
 
     @torch.inference_mode()
     def refine_bisection(self, v: np.ndarray, v1: np.ndarray, v2: np.ndarray,
@@ -309,15 +329,20 @@ class FieldEvaluator:
         if m == 0 or iters == 0:
             return np.asarray(v, np.float32)
         self.stat_queries += m * iters
-        order = morton_order(v, *self._bbox)
-        sorted_in = self._sorted(v, v1, v2, p1, p2, order=order)
-        if force_full or self.pts.shape[0] <= REFINE_CAND_K + self.k:
-            refined = self._refine_plain(*sorted_in, iters)
-        else:
-            refined = self._refine_cand(*sorted_in, iters)
-        res = np.empty((m, 3), np.float32)
-        res[order] = refined.cpu().numpy()
-        return res
+        with span("field.refine") as sp:
+            sp.add(queries=m * iters)
+            order = morton_order(v, *self._bbox)
+            sorted_in = self._sorted(v, v1, v2, p1, p2, order=order)
+            if force_full or self.pts.shape[0] <= REFINE_CAND_K + self.k:
+                refined = self._refine_plain(*sorted_in, iters)
+            else:
+                refined = self._refine_cand(*sorted_in, iters)
+            with span("readback") as rb:
+                host = refined.cpu()
+                rb.add(bytes=12 * m)
+            res = np.empty((m, 3), np.float32)
+            res[order] = host.numpy()
+            return res
 
     def _bisect(self, v: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
                 p1: torch.Tensor, p2: torch.Tensor, iters: int,
@@ -377,7 +402,9 @@ class FieldEvaluator:
                                     iters, ids_at))
             del ids_c, cpts, d2m, ids_at  # 190 MB a chunk of 50 048
         refined = torch.cat(out)
-        bad = torch.nonzero(~torch.cat(cert)).flatten()
+        with span("readback") as rb:  # nonzero reads the count back
+            bad = torch.nonzero(~torch.cat(cert)).flatten()
+            rb.add(bytes=8)
         self.stat_cert_failed += int(bad.numel())
         if bad.numel():
             refined[bad] = self._refine_plain(v[bad], v1[bad], v2[bad], p1[bad],

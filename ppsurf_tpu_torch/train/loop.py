@@ -33,7 +33,9 @@ Port of `ppsurf_tpu/train/loop.py` (reference Lightning Trainer and DDP,
   (`poco_model.py:302-322`), else none; rank 0 alone writes the
   checkpoint, the scalars and the run dir's files. With `profiler: jax`
   (`configs/profiler.yaml`) steps 2-4 are traced with torch.profiler
-  into `<run dir>/profile` (`loop.py:323-346`, `utils/profiling.py`).
+  into `<run dir>/profile` (`loop.py:323-346`, `utils/profiling.py`),
+  with the device's time by span (`utils/spans.py`: `train_step N`,
+  `step.forward`, `step.backward`, `step.optimizer`, `data.wait`).
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ from ppsurf_tpu_torch.parallel.mesh import (
 )
 from ppsurf_tpu_torch.train.model import ModelSpec
 from ppsurf_tpu_torch.utils.profiling import torch_trace
+from ppsurf_tpu_torch.utils.spans import span
 
 BATCH_KEYS = ("pts_ms", "pts_query_ms", "occ", "pts_raw_ms", "raw_valid")
 
@@ -146,20 +149,23 @@ def train_step(net: torch.nn.Module, spec: ModelSpec, optimizer: torch.optim.Opt
     from `masks`, else `generator`. In a process group (`mesh`) the batch
     is this rank's slice; the gradients, loss, counts and buffers are
     reduced over the ranks before the update (module docstring)."""
-    data = spec.assemble_step_data(batch, draws)
-    optimizer.zero_grad(set_to_none=True)
-    logits = net(data, train=True, generator=generator, masks=masks)
-    loss = cross_entropy_loss(logits, batch["occ"])
-    loss.backward()
-    for p in net.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if mesh is not None:
-        all_mean_([p.grad for p in net.parameters()], mesh)
-        (all_mean_ if sync_batch_stats else broadcast_)(list(net.buffers()), mesh)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+    with span("step.forward"):
+        data = spec.assemble_step_data(batch, draws)
+        optimizer.zero_grad(set_to_none=True)
+        logits = net(data, train=True, generator=generator, masks=masks)
+        loss = cross_entropy_loss(logits, batch["occ"])
+    with span("step.backward"):
+        loss.backward()
+    with span("step.optimizer"):  # in a process group also the ranks' reductions
+        for p in net.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            all_mean_([p.grad for p in net.parameters()], mesh)
+            (all_mean_ if sync_batch_stats else broadcast_)(list(net.buffers()), mesh)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
     return _reduce_metrics(loss.detach(),
                            binary_confusion(logits.detach().argmax(-1), batch["occ"]), mesh)
 
@@ -307,7 +313,7 @@ class Trainer:
                             file_name=f"trace_rank{self.mesh.rank}.json"))
                     tb = self._local_batch(batch)
                     b, n = tb["pts_ms"].shape[:2]
-                    with torch.profiler.record_function(f"train_step {state.step}"):
+                    with span(f"train_step {state.step}"):
                         draws = self.spec.draw_step(b, n, generator, self.device)
                         loss, conf = train_step(
                             state.net, self.spec, state.optimizer, tb, draws,

@@ -68,7 +68,7 @@ MODULES = ("cli.py", "rec.py", "data/datasets.py", "models/poco.py", "convert/in
            "campaigns/full_run_pps.py", "campaigns/full_run_pps_mini.py",
            "campaigns/full_run_poco.py", "campaigns/full_run_poco_mini.py",
            "parallel/mesh.py", "utils/profiling.py", "tools/dryrun_multihost.py",
-           "tools/bench.py", "ops/opcount.py", "data/synthetic.py")
+           "tools/bench.py", "ops/opcount.py", "data/synthetic.py", "utils/spans.py")
 
 
 def test_no_file_of_the_port_imports_jax():

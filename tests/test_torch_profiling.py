@@ -2,7 +2,8 @@
 `configs/profiler.yaml`, `utils/profiling.py::torch_trace`): a CPU
 `Trainer.fit` of 6 steps traces steps 2-4, as the JAX package's loop does
 (`ppsurf_tpu/train/loop.py:323-346`), into `<run dir>/profile` as a Chrome
-trace whose step spans are those three and no other, and prints nothing
+trace whose step spans are those three and no other, with the time by
+span beside it (`utils/profiling.py::attribute`), and prints nothing
 about the preset being unsupported; the config file sets the preset.
 """
 from __future__ import annotations
@@ -48,11 +49,16 @@ def test_profiler_preset_traces_steps_2_to_4(tmp_path, capsys):
     names = {e.get("name") for e in events}
     assert "aten::mm" in names or "aten::addmm" in names or "aten::matmul" in names
     assert "not ported" not in capsys.readouterr().out
+    # beside the trace, the time by span of the three traced steps
+    with open(os.path.join(trainer.version_dir, "profile", "trace_rank0.spans.json")) as fp:
+        table = json.load(fp)["spans"]
+    assert sorted(k for k in table if k.startswith("train_step ")) == steps
+    for name in ("step.forward", "step.backward", "step.optimizer"):
+        assert table[name]["count"] == 3 and table[name]["host_s"] > 0
+    assert table["train_step 2"]["self_s"] < table["train_step 2"]["host_s"]
 
 
-def test_torch_trace_disabled_and_print_duration(tmp_path, capsys):
+def test_torch_trace_disabled(tmp_path):
     with profiling.torch_trace(str(tmp_path / "p"), enabled=False) as prof:
         assert prof is None
     assert not os.path.exists(tmp_path / "p")
-    assert profiling.print_duration(lambda a, b: a + b, {"a": 1, "b": 2}, "sum") == 3
-    assert capsys.readouterr().out.startswith("sum took: ")

@@ -60,9 +60,10 @@ def voxel_subsample(pts: torch.Tensor, n_support: int, tie: torch.Tensor,
     """Indices (n_support,) of a spatially uniform subsample of pts (N, 3)."""
     mini = pts.amin(dim=0)
     maxi = pts.amax(dim=0)
-    # reference voxel size: bbox-diagonal norm / sqrt(n_support)
+    # reference voxel size: bbox-diagonal norm / sqrt(n_support); the count
+    # is a device fill, not a host copy, so a CUDA graph can capture it
     vox0 = torch.linalg.vector_norm(maxi - mini) / torch.sqrt(
-        torch.tensor(float(n_support), device=pts.device))
+        torch.full((), float(n_support), device=pts.device))
     vox0 = torch.clamp(vox0, min=1e-12)
     score = tie.clone()
     for lvl in range(NUM_HALVINGS):

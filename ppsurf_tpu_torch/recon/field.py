@@ -7,7 +7,9 @@ and `source/poco_utils.py:67-82`):
   partition of the cloud (a permutation of the size bucketed up to 5000,
   taken modulo n), encoding each 10k-point chunk with its own FKAConv
   graph and averaging every point's latents by scatter-add. Every point is
-  encoded at least once per pass by construction.
+  encoded at least once per pass by construction. On the card a chunk's
+  graph build and network are captured once as CUDA graphs and replayed
+  for every chunk.
 - `FieldEvaluator`: softmax(p0) - softmax(p1) at query points, in chunks
   of 50 048. Per chunk: the k=64 kNN (K1), the decoder tail on the
   fc1-folded latents (K3), fc8; for PPSurf also the P-point patch,
@@ -45,6 +47,7 @@ the caller's order.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import typing
@@ -52,6 +55,7 @@ import typing
 import numpy as np
 import torch
 
+from ppsurf_tpu_torch.ops import kernels
 from ppsurf_tpu_torch.ops.decoder_tail import decoder_tables, decoder_tail
 from ppsurf_tpu_torch.ops.graph import Draws, build_fkaconv_graph, draw_graph
 from ppsurf_tpu_torch.ops.knn import dist2_rows, knn, knn_blocks
@@ -113,14 +117,144 @@ class EncoderDraws:
     graphs: typing.List[Draws]
 
 
+def capture_key(pts: torch.Tensor, s: int, net: torch.nn.Module,
+                dtype: torch.dtype) -> tuple:
+    """What one chunk's captured graphs depend on, as the encoder sees
+    it: the chunk size, the cloud's device and dtype, the network's
+    dtype and the address of each of its parameters and buffers. A
+    replaced tensor makes a new key (a replay would read the old one's
+    memory); one changed in place keeps its key, and replays read it."""
+    tensors = [*net.parameters(), *net.buffers()]
+    return (s, pts.device, pts.dtype, dtype, tuple(t.data_ptr() for t in tensors))
+
+
+def cached(cache: "collections.OrderedDict", key, make: typing.Callable[[], typing.Any],
+           bound: int) -> typing.Tuple[typing.Any, bool]:
+    """(cache[key], False), or on a miss (make(), True) after the least
+    recently used entries are dropped to leave `bound - 1`."""
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key], False
+    while len(cache) >= bound:
+        cache.popitem(last=False)
+    cache[key] = value = make()
+    return value, True
+
+
+class _EagerChunk:
+    """A chunk's graph build and network run op by op (CPU tensors)."""
+
+    replays = False
+
+    def __init__(self, encoder: "LatentEncoder"):
+        self.encoder = encoder
+
+    def graph(self, pts: torch.Tensor, chunk_ids: torch.Tensor, draws: Draws) -> dict:
+        return self.encoder.chunk_graph(pts[chunk_ids], draws)
+
+    def latent(self, data: dict) -> torch.Tensor:
+        return self.encoder.chunk_latent(data)
+
+
+class _CapturedChunk:
+    """A chunk's graph build and network captured on the card as two CUDA
+    graphs that share one memory pool, replayed for every chunk of the
+    same size: `graph` copies the chunk's points and draws into the
+    static inputs and replays the build, `latent` replays the network
+    into the static output, which the next replay overwrites (the caller
+    reads it first, in stream order). Both run exactly the eager chunk's
+    kernels. `kernels.LAUNCHES` counts a replay's kernel launches as the
+    eager chunk would; the warm-up and the capture are not counted."""
+
+    WARMUP = 3  # eager chunks on a side stream before the capture, as torch asks
+    replays = True
+
+    def __init__(self, encoder: "LatentEncoder", pts: torch.Tensor, chunk_ids: torch.Tensor,
+                 draws: Draws):
+        self.pts = pts[chunk_ids]  # a real chunk: the warm-up runs on real data
+        self.draws = [(tie.clone(), rot_u.clone()) for tie, rot_u in draws]
+        counted = dict(kernels.LAUNCHES)
+        with torch.cuda.device(pts.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    encoder.chunk_latent(encoder.chunk_graph(self.pts, self.draws))
+            torch.cuda.current_stream().wait_stream(side)
+            self.build, self.network = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            self.data, self.build_launches = self._capture(
+                self.build, lambda: encoder.chunk_graph(self.pts, self.draws))
+            self.lat, self.network_launches = self._capture(
+                self.network, lambda: encoder.chunk_latent(self.data), self.build.pool())
+        kernels.LAUNCHES.update(counted)
+
+    @staticmethod
+    def _capture(graph, fn, pool=None):
+        """(what `fn` returns, the launches `kernels.launch` counted) while
+        `graph` captures it."""
+        before = dict(kernels.LAUNCHES)
+        # "thread_local": another thread's CUDA call (a loader's) cannot break the capture
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            out = fn()
+        return out, {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+
+    @staticmethod
+    def _replay(graph, launches: typing.Dict[str, int]) -> None:
+        graph.replay()
+        for k, v in launches.items():
+            kernels.LAUNCHES[k] += v
+
+    def graph(self, pts: torch.Tensor, chunk_ids: torch.Tensor, draws: Draws) -> dict:
+        torch.index_select(pts, 0, chunk_ids, out=self.pts)
+        for (tie, rot_u), (s_tie, s_rot_u) in zip(draws, self.draws):
+            s_tie.copy_(tie)
+            s_rot_u.copy_(rot_u)
+        self._replay(self.build, self.build_launches)
+        return self.data
+
+    def latent(self, data: dict) -> torch.Tensor:
+        self._replay(self.network, self.network_launches)
+        return self.lat
+
+
 class LatentEncoder:
-    """Accumulate per-point latents over random-partition passes."""
+    """Accumulate per-point latents over random-partition passes.
+
+    Every chunk of a call has the same size s, so on the card one chunk's
+    work is captured as CUDA graphs (`_CapturedChunk`) and replayed for
+    all of them: the card, not the Python loop, sets the pace. The
+    captures are kept on the encoder, keyed by `capture_key`, the
+    MAX_CAPTURES most recently used (each holds its memory pool); clouds
+    of at least `gen_subsample_manifold` points share one. CPU tensors run
+    the same two halves op by op."""
 
     BUCKET = 5000  # cloud sizes round up to this (`field.py:388-399`)
+    MAX_CAPTURES = 4
 
     def __init__(self, net, spec: ModelSpec):
         self.net = net
         self.spec = spec
+        self._captures: "collections.OrderedDict[tuple, _CapturedChunk]" = \
+            collections.OrderedDict()
+
+    def chunk_graph(self, chunk_pts: torch.Tensor, draws: Draws) -> dict:
+        """One chunk's network input: its points and FKAConv graph."""
+        data = {"pts": chunk_pts[None]}
+        data.update(build_fkaconv_graph(chunk_pts, draws))
+        return data
+
+    def chunk_latent(self, data: dict) -> torch.Tensor:
+        """One chunk's (s, L) latents in the network's dtype."""
+        return self.net.get_latent(data)[0]
+
+    def _runner(self, pts: torch.Tensor, chunk_ids: torch.Tensor, draws: Draws):
+        """(how this call runs its chunks, whether it captured): the
+        captured chunk of this size on the card, else op by op."""
+        if not pts.is_cuda:
+            return _EagerChunk(self), False
+        key = capture_key(pts, chunk_ids.shape[0], self.net, self.spec.dtype)
+        return cached(self._captures, key,
+                      lambda: _CapturedChunk(self, pts, chunk_ids, draws), self.MAX_CAPTURES)
 
     def layout(self, n: int) -> typing.Tuple[int, int, int]:
         """(bucketed size nb, chunk size s, chunks per pass)."""
@@ -144,7 +278,7 @@ class LatentEncoder:
                  generator: typing.Optional[torch.Generator] = None,
                  draws: typing.Optional[EncoderDraws] = None) -> torch.Tensor:
         """pts (N, 3) on the device -> (N, L) f32 averaged latents."""
-        with span("encode"):
+        with span("encode") as sp:
             n = pts.shape[0]
             nb, s, num_chunks = self.layout(n)
             if draws is None:
@@ -158,19 +292,21 @@ class LatentEncoder:
             latent_sum = torch.zeros((n, latent_dim), dtype=torch.float32, device=pts.device)
             counts = torch.zeros((n,), dtype=torch.float32, device=pts.device)
             ones = torch.ones((s,), dtype=torch.float32, device=pts.device)
+            run, captured = self._runner(pts, ids[0], draws.graphs[0])
             for p in range(perms.shape[0]):
                 with span("encode.pass"):
                     for c in range(p * num_chunks, (p + 1) * num_chunks):
                         chunk_ids = ids[c]
                         with span("encode.graph"):
-                            chunk_pts = pts[chunk_ids]
-                            data = {"pts": chunk_pts[None]}
-                            data.update(build_fkaconv_graph(chunk_pts, draws.graphs[c]))
+                            data = run.graph(pts, chunk_ids, draws.graphs[c])
                         with span("encode.net"):
-                            lat = self.net.get_latent(data)[0]
+                            lat = run.latent(data)
                         with span("encode.accumulate"):
                             latent_sum.index_add_(0, chunk_ids, lat.float())
                             counts.index_add_(0, chunk_ids, ones)
+            chunks = ids.shape[0]
+            sp.add(chunks=chunks, replays=chunks if run.replays else 0,
+                   captures=int(captured))
             return latent_sum / torch.clamp(counts, min=1.0)[:, None]
 
 

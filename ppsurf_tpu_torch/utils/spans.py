@@ -32,7 +32,7 @@ Spans and counts the program records:
 
 | Span | Where | Counts |
 |---|---|---|
-| `encode`, `encode.pass`, `encode.graph`, `encode.net`, `encode.accumulate` | `recon/field.py::LatentEncoder`: the call, each pass, each chunk's graph build (K1, subsampling), network and scatter-add | |
+| `encode`, `encode.pass`, `encode.graph`, `encode.net`, `encode.accumulate` | `recon/field.py::LatentEncoder`: the call, each pass, each chunk's graph build (K1, subsampling; on the card the copy of its inputs and the replay of the captured build), network (on the card its replay) and scatter-add | `encode`: `chunks`, `replays` (chunks run from a captured CUDA graph), `captures` (made in the call) |
 | `field`, `field.sort`, `field.chunk`, `readback` | `recon/field.py::FieldEvaluator.__call__`: the call, the host Morton order and upload, each chunk, the values' copy to the host | `field`: `queries`; `readback`: `bytes` |
 | `field.refine`, `readback` | `FieldEvaluator.refine_bisection`: the call, the failed certificates' count and the vertices' copy to the host | `field.refine`: `queries`; `readback`: `bytes` |
 | `grow`, `mesh`, `refine`, `clean` | `recon/engine.py::reconstruct_mesh`, filling `timings` | |

@@ -6,6 +6,8 @@ Written from the published networks as the JAX package states them
 importing none of it: the FKAConv U-Net encoder over random partitions of
 the cloud, the interpolation-attention decoder, PPSurf's PointNet branch
 and MLP, the field softmax(p0) - softmax(p1), and the vertex bisection.
+PPSurf's patch is the P nearest cloud points at any P, its own search
+where P is above the decoder's k.
 Every module is plain tensor arithmetic on a flat weight dict with the
 flax names of the committed `.npz` ('params/encoder/cv0/fc1/kernel', ...);
 BatchNorm runs on its running statistics (eval mode), nothing folded.
@@ -276,15 +278,24 @@ class Plain:
         return (w * self.dense(x, p + "att/fc_value")).sum(dim=1)
 
     def field(self, latents: Tensor, pts: Tensor, q: Tensor, block: int = 2048) -> Tensor:
-        """softmax(logits)[0] - softmax(logits)[1] at queries q (Q, 3)."""
-        k = min(self.c["k"], pts.shape[0])
+        """softmax(logits)[0] - softmax(logits)[1] at queries q (Q, 3).
+
+        The decoder reads each query's k nearest cloud points; PPSurf's
+        patch is its P = num_pts_local nearest, as published, whether P is
+        below k or above it (100NN, 200NN). One search a block at
+        max(k, P) serves both: `knn` sorts stably, so its first k columns
+        are the search at k, ties to the lower id. Both are cut to the
+        cloud's N points where it has fewer."""
+        n = pts.shape[0]
+        k = min(self.c["k"], n)
+        pk = min(self.c["num_pts_local"], n) if self.ppsurf else 0
         out = []
         for s in range(0, q.shape[0], block):
             qb = q[s:s + block]
-            ids = knn(pts, qb, k)
-            logits = self.decoder(latents, pts, qb, ids)
+            ids = knn(pts, qb, max(k, pk))
+            logits = self.decoder(latents, pts, qb, ids[:, :k])
             if self.ppsurf:
-                patch = pts[ids[:, :min(self.c["num_pts_local"], k)]] - qb[:, None, :]
+                patch = pts[ids[:, :pk]] - qb[:, None, :]
                 radius = torch.linalg.vector_norm(patch, dim=-1).amax(dim=-1)
                 patch = patch / torch.clamp(radius[:, None, None], min=1e-30)
                 x = logits + self.pointnet(patch)

@@ -14,12 +14,20 @@ from benchmark.tests.conftest import tiny_cell
 from benchmark.yardstick.synthetic import rng_for, torus_cloud
 
 
-@pytest.fixture(scope="module", params=["pps50nn", "poco"])
+# each case: a configuration and the keys set on its tiny cell
+CASES = {"pps50nn": ("pps50nn", {}), "poco": ("poco", {}),
+         # a patch wider than the decoder's k=64: a search of its own
+         "pps50nn.p100": ("pps50nn", {"num_pts_local": 100})}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
 def sides(request):
     from ppsurf_tpu_torch.recon.field import FieldEvaluator
     from ppsurf_tpu_torch.recon.predict import Predictor
 
-    cell = tiny_cell(request.param)
+    name, keys = CASES[request.param]
+    cell = tiny_cell(name)
+    cell.config.update(keys)
     dev = torch.device("cpu")
     flat = weights_mod.load(cell.config, 77, dev)
     pred = Predictor(spec_of(cell.config, cell.mix), variables=weights_mod.nested(flat),
@@ -31,7 +39,7 @@ def sides(request):
                         transform=sphere_blend(cloud) if blend else None)
     ref = compare.reference_side(cell.config, cell.mix, flat,
                                  dict(cloud=cloud, gen_seed=5), dev)
-    return request.param, cloud, latents, ev, ref, blend
+    return name, cloud, latents, ev, ref, blend
 
 
 def test_latents_match(sides):
@@ -66,6 +74,32 @@ def test_bisection_matches(sides):
     assert keep.sum() > 20
     edge = np.linalg.norm(r["v2"] - r["v1"], axis=1)
     assert np.max(np.linalg.norm(got - want, axis=1) / edge) <= 1e-3
+
+
+@pytest.mark.parametrize("cloud", ["random", "duplicated", "lattice"])
+def test_knn_prefix_is_the_search_at_k(cloud):
+    """The first k columns of a search at P > k are the search at k, ties
+    to the lower id: what lets the field take the decoder's ids and a
+    wider patch from one search."""
+    rng = np.random.default_rng(9)
+    pts = rng.random((3000, 3)).astype(np.float32)
+    if cloud == "duplicated":  # every point twice: each distance tied
+        pts[1500:] = pts[:1500]
+    elif cloud == "lattice":  # a 15^3 grid: many points at one distance
+        g = np.arange(15, dtype=np.float32)
+        pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3) / 14
+    pts = torch.from_numpy(pts)
+    # queries at cloud points (distance 0, tied where duplicated) and off them
+    q = torch.cat([pts[::37], torch.from_numpy(rng.random((200, 3)).astype(np.float32))])
+    d2 = plain.dist2(pts, q)
+    for k, p in ((64, 100), (64, 200), (16, 256)):
+        wide = plain.knn(pts, q, p, block=97)
+        assert torch.equal(wide[:, :k], plain.knn(pts, q, k))
+        dw = torch.gather(d2, 1, wide)
+        assert bool((dw[:, 1:] >= dw[:, :-1]).all())  # nearest first
+        tied = dw[:, 1:] == dw[:, :-1]
+        assert bool(tied.any()) == (cloud != "random")
+        assert bool((wide[:, 1:] > wide[:, :-1])[tied].all())  # ties to the lower id
 
 
 def test_fp8_rounding():

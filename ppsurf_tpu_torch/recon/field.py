@@ -380,7 +380,9 @@ class FieldEvaluator:
         transform."""
         patch_ids = None
         if self.patch_k > self.k:
-            patch_ids = knn(rep.pts, q, self.patch_k, blocks=rep.blocks)
+            with span("field.patch") as sp:
+                patch_ids = knn(rep.pts, q, self.patch_k, blocks=rep.blocks)
+                sp.add(queries=q.shape[0])
             if ids is None:
                 ids = patch_ids[:, : self.k].contiguous()
         elif ids is None:

@@ -35,6 +35,7 @@ Spans and counts the program records:
 | `encode`, `encode.pass`, `encode.graph`, `encode.net`, `encode.accumulate` | `recon/field.py::LatentEncoder`: the call, each pass, each chunk's graph build (K1, subsampling; on the card the copy of its inputs and the replay of the captured build), network (on the card its replay) and scatter-add | `encode`: `chunks`, `replays` (chunks run from a captured CUDA graph), `captures` (made in the call) |
 | `field`, `field.sort`, `field.chunk`, `readback` | `recon/field.py::FieldEvaluator.__call__`: the call, the host Morton order and upload, each chunk, the values' copy to the host | `field`: `queries`; `readback`: `bytes` |
 | `field.refine`, `readback` | `FieldEvaluator.refine_bisection`: the call, the failed certificates' count and the vertices' copy to the host | `field.refine`: `queries`; `readback`: `bytes` |
+| `field.patch` | `FieldEvaluator._field` where the patch is wider than the decoder's k (PPSurf 100NN, 200NN): the patch's own kNN at k=P (K1), under `field.chunk` in a grid evaluation and under `field.refine` in every bisection round, the failed certificates' plain rounds included; none at P <= k or in POCO | `queries` (the chunk's rows) |
 | `grow`, `mesh`, `refine`, `clean` | `recon/engine.py::reconstruct_mesh`, filling `timings` | |
 | `step.forward`, `step.backward`, `step.optimizer` | `train/loop.py::train_step` | |
 | `train_step N` | `Trainer.fit` | |

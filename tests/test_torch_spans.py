@@ -10,6 +10,11 @@
 - a tiny traced `reconstruct_mesh` fills `timings` with its phases'
   span durations, the `field` and `field.refine` spans' queries sum to
   the evaluator's `stat_queries`, and every readback sits in a field call;
+- at a patch wider than the decoder's k (P=200), a traced
+  reconstruction records one `field.patch` span a chunk evaluation, under
+  `field.chunk` in the grid and under `field.refine` in refinement (the
+  failed certificates' plain rounds included), whose `queries` add up to
+  every query the field evaluated; at P <= k and in POCO it records none;
 - a tiny traced `train_step` records `step.forward`, `step.backward` and
   `step.optimizer` once each, and the loader's `data.wait`;
 - on synthetic events, a device event goes to the innermost span open
@@ -26,13 +31,14 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ppsurf_tpu_torch.convert.infer_npz import load_infer_npz, load_network
 from ppsurf_tpu_torch.convert.init import init_variables
 from ppsurf_tpu_torch.data.datasets import OccupancyDataModule
 from ppsurf_tpu_torch.data.synthetic import torus_cloud
 from ppsurf_tpu_torch.io.ply import save_ply
 from ppsurf_tpu_torch.recon.engine import reconstruct_mesh
 from ppsurf_tpu_torch.recon.field import FieldEvaluator
-from ppsurf_tpu_torch.recon.predict import Predictor
+from ppsurf_tpu_torch.recon.predict import DEFAULT_WEIGHTS, Predictor
 from ppsurf_tpu_torch.train import loop
 from ppsurf_tpu_torch.train import model as tmodel
 from ppsurf_tpu_torch.utils import profiling, spans
@@ -87,6 +93,89 @@ def traced():
         mesh, evaluator, layout = reconstruct(timings, stats)
     return types.SimpleNamespace(spans=list(spans.RECORDER.spans), timings=timings, stats=stats,
                                  mesh=mesh, evaluator=evaluator, layout=layout)
+
+
+def patch_cloud():
+    """The small cloud of `test_torch_patches.py`: 1 500 points on a bumpy
+    sphere flattened to a third in z, with random latents of width 256."""
+    rng = np.random.RandomState(0)
+    d = rng.randn(1500, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    bumps = 1.0 + 0.1 * np.sin(3 * d[:, 0]) * np.cos(2 * d[:, 1])
+    pts = (d * 0.4 * bumps[:, None]).astype(np.float32) * np.float32([1.0, 1.0, 0.3])
+    latents = (np.random.RandomState(4).randn(pts.shape[0], 256) * 0.5).astype(np.float32)
+    return pts, latents
+
+
+def traced_field(spec, variables):
+    """A reconstruction of the small cloud (res 17, 1 024-query chunks,
+    the candidate refinement) and a refinement of edges too long for any
+    certificate, in one traced window: (the window's spans, the
+    evaluator, the queries of each of its chunk evaluations)."""
+    pts, latents = patch_cloud()
+    net = load_network(spec, variables, torch.device("cpu"))
+    lat = torch.from_numpy(latents[:, :spec.network_latent_size].copy())
+    evaluator = FieldEvaluator(net, spec, pts, lat, transform=sphere(pts))
+    calls = []
+    field = evaluator._field
+
+    def counted(rep, q, ids=None):
+        calls.append(q.shape[0])
+        return field(rep, q, ids)
+
+    evaluator._field = counted
+    rng = np.random.RandomState(6)
+    v1 = pts[rng.randint(0, pts.shape[0], 200)] * 1.5
+    v2 = v1 * 0.2
+    with cpu_profile():
+        mesh = reconstruct_mesh(evaluator, input_points=pts, resolution=RES,
+                                refine_iter=REFINE, refine_device=evaluator.refine_bisection)
+        p1, p2 = evaluator(v1), evaluator(v2)
+        keep = (p1 * p2) < 0
+        evaluator.refine_bisection(0.5 * (v1 + v2)[keep], v1[keep], v2[keep], p1[keep],
+                                   p2[keep], REFINE)
+    assert mesh is not None and keep.sum() > 20
+    return list(spans.RECORDER.spans), evaluator, calls
+
+
+def wide_spec(p: int, **kw):
+    return tmodel.ppsurf_spec(num_pts_local=p, gen_subsample_manifold_iter=PASSES,
+                              gen_refine_iter=REFINE, rec_batch_size=1024, **kw)
+
+
+def test_wide_patch_search_has_a_span_a_chunk_evaluation():
+    spec = wide_spec(200)
+    recorded, evaluator, calls = traced_field(spec, load_infer_npz(DEFAULT_WEIGHTS))
+    assert (evaluator.k, evaluator.patch_k) == (64, 200)
+    patches = by_name(recorded, "field.patch")
+    assert [s.counts["queries"] for s in patches] == calls and len(calls) > 2 * REFINE
+    assert {s.parent.name for s in patches} == {"field.chunk", "field.refine"}
+    for chunk in by_name(recorded, "field.chunk"):
+        assert [s.name for s in recorded if s.parent is chunk] == ["field.patch"]
+        assert chunk.parent.name == "field"
+    # every grid query, every bisection iterate and, on the plain path,
+    # every iterate of a vertex whose certificate failed
+    assert evaluator.stat_cert_failed > 0
+    total = sum(s.counts["queries"] for s in patches)
+    assert total == evaluator.stat_queries + evaluator.stat_cert_failed * REFINE
+    refine = by_name(recorded, "field.refine")
+    assert len(refine) == 2
+    assert sum(s.counts["queries"] for s in patches if s.parent.name == "field.refine") \
+        == sum(s.counts["queries"] for s in refine) + evaluator.stat_cert_failed * REFINE
+
+
+@pytest.mark.parametrize("kind", ["ppsurf_50nn", "poco"])
+def test_no_patch_span_where_the_decoder_ids_hold_the_patch(kind):
+    if kind == "poco":
+        spec = tmodel.poco_spec(gen_subsample_manifold_iter=PASSES, gen_refine_iter=REFINE,
+                                rec_batch_size=1024)
+        variables = init_variables(spec, seed=0)
+    else:
+        spec, variables = wide_spec(50), load_infer_npz(DEFAULT_WEIGHTS)
+    recorded, evaluator, calls = traced_field(spec, variables)
+    assert evaluator.patch_k <= evaluator.k and len(calls) > 2 * REFINE
+    assert by_name(recorded, "field.chunk") and by_name(recorded, "field.refine")
+    assert not by_name(recorded, "field.patch")
 
 
 def write_spheres(root: str, shapes: int = 4, n_pts: int = 200, n_query: int = 32) -> str:

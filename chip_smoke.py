@@ -196,7 +196,14 @@ In order, it:
     (with `FieldEvaluator.fixed_rows` off, the count that differs is
     printed) (phases 14-19 are skipped under --no-campaign; this one is
     not);
-21. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
+21. meshes the grown volume of the exact torus-and-sphere distance around
+    phase 4's cloud on the card (`ops/mesh.py`, `csrc/mesh.cu`) and on the
+    host, and cleans its host-refined vertices on both, in turns: the same
+    meshes bit for bit, each route's seconds a phase, the meshing kernels'
+    device milliseconds an object beside their bound (the bytes they read
+    and write at 3.35 TB/s) and the volume's copy to the card apart
+    (`mesh_phase`); their launches an object are phase 4's, checked there;
+22. prints `{"kernels": [...]}`, the nvidia-smi line, and as its last line
    `{"ok": true, "device": {...}}`.
 
 Phases 4, 5b, 7-11, each part of 12 and 14, each scoring of 13, phases
@@ -213,6 +220,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2161,6 +2169,206 @@ def prefill_phase(args, predictor, cloud) -> None:
                     fail("the field gives a query other bits in another batch")
 
 
+# phase 21: the engine's mesh and clean phases on the card (`ops/mesh.py`,
+# `csrc/mesh.cu`) against the host route
+MESH_ROUNDS = 3
+MESH_CUDA_KERNELS = ("classify_kernel", "edges_kernel", "vertices_kernel", "faces_kernel",
+                     "round_keys_kernel", "runs_kernel", "groups_kernel", "face_keys_kernel",
+                     "dedup_kernel", "edge_keys_kernel", "union_kernel", "roots_kernel",
+                     "keep_kernel", "compact_faces_kernel", "compact_vertices_kernel")
+# the C entries' launches an object: extraction once, a cleanup in each phase
+MESH_LAUNCHES = {"mesh_classify": 1, "mesh_edges": 1, "mesh_emit": 1, "mesh_round_keys": 2,
+                 "mesh_runs": 2, "mesh_groups": 2, "mesh_face_keys": 2, "mesh_dedup": 2,
+                 "mesh_components": 2, "mesh_compact": 2}
+
+
+def kernel_name(key: str) -> str:
+    """A profiler event's function name: `(anonymous namespace)::f(args)`
+    and `f(args)` give `f`."""
+    m = re.search(r"(?:^|::)(\w+)\(", key)
+    return m.group(1) if m else key
+
+
+def mesh_kernel_bytes(points: int, raw_v: int, raw_f: int, v: int, f: int) -> int:
+    """The bytes the meshing kernels of one object read and write, each
+    array once a kernel: the grid passes (classify 8 + 1 + 4, edges
+    8 + 4 + 1 + 4, the emitters 1 + 4 a point), the emitters' rows (a
+    vertex 8 + 16 + 12, a face 1 + 8 + 3 x (1 + 8 + 8 + 8)), and a cleanup
+    of n vertices and m faces (round keys 36, runs 36, groups 32 a vertex,
+    the leaders' copy 40; face keys 80, dedup 17, edge keys 49, union 52,
+    roots 13, keep 49, compaction 68 a face) of the raw mesh (raw_v, raw_f)
+    in the mesh phase and of the mesh it leaves (v, f) in the clean phase."""
+    def cleanup(n: int, m: int) -> int:
+        return 144 * n + 328 * m
+
+    return 35 * points + 36 * raw_v + 84 * raw_f + cleanup(raw_v, raw_f) + cleanup(v, f)
+
+
+def mesh_phase(args, smi: str) -> dict:
+    """The grown volume of the exact torus-and-sphere distance around
+    phase 4's cloud at the smoke's resolution, and its mesh refined on the
+    host (10 bisections of the same field): the card route's `mesh` phase
+    (the volume's copy, extraction, merge, dedup, small components, the
+    mesh back to the host) and `clean` phase (the refined vertices up, the
+    cleaned mesh back) against the host route's, in turns (host, card,
+    card, host; `MESH_ROUNDS` rounds): the same meshes bit for bit; each
+    route's median host-clock seconds a phase; the kernels' device
+    milliseconds an object (torch.profiler: the hand kernels, and the
+    sorts and scans between them); the plain versions' seconds on CPU
+    tensors (the same meshes); the volume's pageable copy rate and time;
+    the kernels' bound (`mesh_kernel_bytes` at 3.35 TB/s). Returns the
+    kernel table's row; phase 4 adds the launches an object."""
+    import numpy as np
+    import torch
+
+    from ppsurf_tpu_torch.io.ply import Mesh
+    from ppsurf_tpu_torch.recon import engine
+    from ppsurf_tpu_torch.recon.marching_cubes import marching_cubes
+    from ppsurf_tpu_torch.recon.mesh_ops import clean_simple, remove_small_connected_components
+    from ppsurf_tpu_torch.utils.spans import span
+
+    dev = torch.device("cuda")
+
+    def field(q):
+        return torus_sdf(*(q[:, i].astype(np.float64) for i in range(3))).astype(np.float32)
+
+    cloud = torus_cloud(N_POINTS, seed=0)
+    volume, step, bmin_pad = engine.create_volume_region_growing(field, cloud, args.resolution)
+
+    def host_mesh():
+        finite = volume[np.isfinite(volume)]
+        assert finite.max() > 0.0 > finite.min()
+        mesh = clean_simple(Mesh(*marching_cubes(volume, 0.0)))
+        return remove_small_connected_components(mesh, num_faces=6)
+
+    def host_clean(world, faces):
+        mesh = clean_simple(Mesh(vertices=world, faces=faces))
+        return remove_small_connected_components(mesh, num_faces=6)
+
+    def card_mesh():
+        with span("mesh") as sp:
+            return engine._mesh_on_card(volume, 0.0, 6, dev, sp)
+
+    def card_clean(world, faces):
+        with span("clean") as sp:
+            return engine._clean_on_card(world, faces, 6, sp)
+
+    def same(a, b) -> bool:
+        return (a.vertices.shape == b.vertices.shape and a.faces.shape == b.faces.shape
+                and np.array_equal(a.vertices.view(np.int32), b.vertices.view(np.int32))
+                and np.array_equal(a.faces, b.faces))
+
+    mesh = host_mesh()
+    raw_v, raw_f = (a.shape[0] for a in marching_cubes(volume, 0.0))
+    world = engine.refine_vertices(mesh.vertices.astype(np.float64), volume, field, step,
+                                   bmin_pad, refine_iter=10)
+    card, faces_t = card_mesh()  # warm: the kernels' first launches
+    card_clean(world, faces_t)
+    times = {k: [] for k in ("host mesh", "card mesh", "host clean", "card clean")}
+    for _ in range(MESH_ROUNDS):
+        for route in ("host", "card", "card", "host"):
+            t0 = time.perf_counter()
+            m = host_mesh() if route == "host" else card_mesh()[0]
+            torch.cuda.synchronize()
+            times[f"{route} mesh"].append(time.perf_counter() - t0)
+            if not same(m, mesh):
+                fail(f"the card route's mesh phase differs from the host route's ({route})")
+            t0 = time.perf_counter()
+            c = host_clean(world, mesh.faces) if route == "host" else card_clean(world, faces_t)
+            torch.cuda.synchronize()
+            times[f"{route} clean"].append(time.perf_counter() - t0)
+            if route == "host":
+                want = c
+            elif not same(c, want):
+                fail("the card route's clean phase differs from the host route's")
+    if not same(card_clean(world, faces_t), want):
+        fail("the card route's clean phase differs from the host route's")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print("# mesh on the card, s a phase in turns (host, card, card, host; median of "
+          f"{2 * MESH_ROUNDS}): " + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+          + f"; {mesh.faces.shape[0]} faces, {mesh.vertices.shape[0]} vertices; "
+          f"clean {want.faces.shape[0]} faces", flush=True)
+
+    # the plain PyTorch versions (CPU tensors), once: the same meshes
+    from ppsurf_tpu_torch.ops import mesh as ops_mesh
+
+    t0 = time.perf_counter()
+    pv, pf, _ = ops_mesh.mesh_volume(torch.from_numpy(volume), 0.0, 6)
+    plain_mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cv, cf = ops_mesh.clean(torch.from_numpy(world), pf, 6)
+    plain_clean_s = time.perf_counter() - t0
+    if not (same(Mesh(pv.numpy(), pf.numpy()), mesh) and same(Mesh(cv.numpy(), cf.numpy()), want)):
+        fail("the plain meshing differs from the host route")
+    print(f"# plain meshing on the host's CPU: mesh {plain_mesh_s:.3f} s, clean "
+          f"{plain_clean_s:.3f} s (the same meshes)", flush=True)
+
+    # the volume's copy as the engine makes it (pageable), and pinned
+    copy_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        torch.from_numpy(volume).to(dev)
+        torch.cuda.synchronize()
+        copy_s.append(time.perf_counter() - t0)
+    pinned = torch.from_numpy(volume).pin_memory()
+    pinned_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pinned.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        pinned_s.append(time.perf_counter() - t0)
+    rate = volume.nbytes / statistics.median(copy_s)
+    kernel_bytes = mesh_kernel_bytes(volume.size, raw_v, raw_f, mesh.vertices.shape[0],
+                                     mesh.faces.shape[0])
+    bound = kernel_bytes / PEAK_BYTES * 1e3
+    print(f"# volume {volume.shape} float64, {volume.nbytes / 1e6:.1f} MB: pageable copy "
+          f"{statistics.median(copy_s) * 1e3:.2f} ms ({rate / 1e9:.2f} GB/s), pinned "
+          f"{statistics.median(pinned_s) * 1e3:.2f} ms; the kernels' bound {bound:.3f} ms "
+          f"({kernel_bytes / 1e6:.1f} MB at 3.35 TB/s; raw mesh {raw_v} vertices {raw_f} "
+          "faces)", flush=True)
+
+    # device time an object by kernel: the second of two objects (a
+    # trace's first events can go missing while it starts)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                                 active=1)) as prof:
+        for i in range(2):
+            _, faces_t = card_mesh()
+            card_clean(world, faces_t)
+            torch.cuda.synchronize()
+            if i == 0:
+                prof.step()
+    own, copies, other = {}, {}, {}
+    for e in prof.key_averages():
+        ms = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
+        if ms <= 0 or e.key.startswith("ProfilerStep"):
+            continue
+        name = kernel_name(e.key)
+        if name in MESH_CUDA_KERNELS:
+            own[name] = own.get(name, 0.0) + ms
+        else:
+            (copies if e.key.startswith("Memcpy") else other)[e.key] = ms
+    own_ms = sum(own.values())
+    print(f"# mesh + clean device ms an object: hand kernels {own_ms:.3f} ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(own.items(), key=lambda kv: -kv[1]))
+          + f"); copies {sum(copies.values()):.3f} ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in copies.items())
+          + f"); PyTorch's sorts, scans and gathers {sum(other.values()):.3f} ("
+          + ", ".join(f"{k[:48]} {v:.3f}" for k, v in sorted(other.items(),
+                                                             key=lambda kv: -kv[1])[:8])
+          + ")", flush=True)
+    if set(own) != set(MESH_CUDA_KERNELS):
+        fail(f"meshing kernels missing from the trace: {set(MESH_CUDA_KERNELS) - set(own)}")
+    return dict(name="mesh", route="cuda", source="ppsurf_tpu_torch/csrc/mesh.cu",
+                replaces="none (host C++ meshing, native/ppsurf_native.cpp)",
+                ms=own_ms, other_ms=sum(other.values()), bound_ms=bound, bound_by="bytes",
+                card_mesh_s=med["card mesh"], card_clean_s=med["card clean"],
+                host_mesh_s=med["host mesh"], host_clean_s=med["host clean"],
+                copy_ms=statistics.median(copy_s) * 1e3,
+                plain_ms=(plain_mesh_s + plain_clean_s) * 1e3,
+                shape=f"{volume.shape} f64, {mesh.faces.shape[0]} faces")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resolution", type=int, default=257)
@@ -2649,6 +2857,10 @@ def main() -> int:
     zero = [k for k in PATH_KERNELS if launches[k] == 0]
     if zero:
         fail(f"kernels not launched on the main path: {zero}")
+    # the mesh and clean phases on the card: the engine's card route
+    mesh_launches = {k: launches[k] for k in kernels.MESH_KERNELS}
+    if mesh_launches != MESH_LAUNCHES:
+        fail(f"the reconstruction's meshing launches: {mesh_launches}, not {MESH_LAUNCHES}")
     ev = predictor.last_evaluator
     queries = ev.stat_queries
     print(f"# e2e res {args.resolution}, {N_POINTS} pts, {args.passes} passes, "
@@ -3087,11 +3299,17 @@ def main() -> int:
     print(f"# benchmark and prefill: phase 20 took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # ---- 21. the engine's mesh and clean phases on the card ----
+    t0 = time.perf_counter()
+    results["mesh"] = mesh_phase(args, smi)
+    results["mesh"]["launches"] = sum(mesh_launches.values())
+    print(f"# mesh on the card: phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(f"# total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [results[k] for k in
                                   PATH_KERNELS + NEW_BUILDS + F32_BUILDS
                                   + tuple(f"extract_{v}" for v in VARIANTS)
-                                  + ("winding",)]}))
+                                  + ("winding", "mesh")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-SOURCES = ("knn.cu", "decoder_tail.cu", "pointnet.cu", "select.cu", "winding.cu")
+SOURCES = ("knn.cu", "decoder_tail.cu", "pointnet.cu", "select.cu", "winding.cu", "mesh.cu")
 HEADERS = ("common.cuh", "gmma.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,16 +43,23 @@ EXTRACT_VARIANTS = ("noop", "elementwise", "sum_only", "min_only", "min_argmin",
 # 256 and "decoder_tail_l32" at latent 32 (POCO); K4 and K5 under
 # "pointnet_trunk"/"pointnet_head" for patches of one 64-row tile and
 # "..._wide" for P in (64, 256]; W1 (the metrics' winding number) under
-# "winding".
+# "winding"; the meshing kernels (`ops/mesh.py`) under "mesh_" and their C
+# entry's name.
+MESH_KERNELS = ("mesh_classify", "mesh_edges", "mesh_emit", "mesh_round_keys", "mesh_runs",
+                "mesh_groups", "mesh_face_keys", "mesh_dedup", "mesh_components",
+                "mesh_compact")
 LAUNCHES: typing.Dict[str, int] = {
     "knn": 0, "knn_k192": 0, "decoder_tail": 0, "decoder_tail_l32": 0,
     "pointnet_trunk": 0, "pointnet_head": 0, "pointnet_trunk_wide": 0,
     "pointnet_head_wide": 0, "topk_rows": 0, "winding": 0,
     **{f"extract_{v}": 0 for v in EXTRACT_VARIANTS},
+    **{k: 0 for k in MESH_KERNELS},
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # C entry points: (argtypes); every one returns a cudaError_t as int
 _SIGNATURES = {
     # pts4, boxes, queries, out ids, blocks, nq, k, points a block, stream
@@ -71,6 +78,17 @@ _SIGNATURES = {
     "ppsurf_extract": [_P, _P, _I, _I, _I, _I, _P],
     # queries, packed faces, partial sums, out, nq, face tiles, splits, stream
     "ppsurf_winding": [_P] * 4 + [_I] * 3 + [_P],
+    # meshing (`csrc/mesh.cu`, arguments as its comments say)
+    "ppsurf_mesh_classify": [_P, _I, _I, _I, _D, _P, _P, _P, _P, _P],
+    "ppsurf_mesh_edges": [_P, _P, _I, _I, _I, _D, _P, _P, _P],
+    "ppsurf_mesh_emit": [_P] * 6 + [_I, _I, _I, _D] + [_P] * 5,
+    "ppsurf_mesh_round_keys": [_P, _L, _P, _P],
+    "ppsurf_mesh_runs": [_P, _P, _I, _P, _P],
+    "ppsurf_mesh_groups": [_P, _P, _P, _I, _P, _P, _P],
+    "ppsurf_mesh_face_keys": [_P, _P, _I, _L, _I, _P, _P, _P, _P],
+    "ppsurf_mesh_dedup": [_P] * 4 + [_I, _L] + [_P] * 3,
+    "ppsurf_mesh_components": [_P] * 4 + [_I, _I] + [_P] * 5,
+    "ppsurf_mesh_compact": [_P] * 4 + [_I] + [_P] * 3 + [_I] + [_P] * 3,
 }
 # launch shapes (`launch_info`): (int arguments) -> 4 long longs
 _INFO = {

@@ -9,18 +9,27 @@ Host-side copy of the JAX package's engine (reference
 - every network query goes through the `FieldEvaluator` callable;
 - vertex refinement is the reference's bisection (`poco_utils.py:111-168`)
   vectorized over all crossing vertices at once, with a fixed
-  `refine_iter` iteration count, optionally run by the evaluator itself.
+  `refine_iter` iteration count, optionally run by the evaluator itself;
+- meshing and cleanup run where the reconstruction runs: on a CUDA device
+  the volume goes to the card once and the kernels of `ops/mesh.py` mesh
+  and clean it there (the same mesh, bit for bit); on the CPU the host
+  route (native C++, numpy fallback) does.
 """
 from __future__ import annotations
 
 import typing
 
 import numpy as np
+import torch
 
 from ppsurf_tpu_torch.io.ply import Mesh
 from ppsurf_tpu_torch.recon.marching_cubes import marching_cubes
 from ppsurf_tpu_torch.recon.mesh_ops import clean_simple, remove_small_connected_components
 from ppsurf_tpu_torch.utils.spans import span
+
+# the package's own extraction, which the card route repeats; a caller that
+# puts another in `marching_cubes`' place here gets the host route
+_OWN_MARCHING_CUBES = marching_cubes
 
 
 def dilate_mask(mask: np.ndarray, size: int) -> np.ndarray:
@@ -283,6 +292,44 @@ def refine_vertices(
     return world.astype(np.float32)
 
 
+def card_device(device: typing.Union[str, torch.device, None] = None
+                ) -> typing.Optional[torch.device]:
+    """The card the mesh and clean phases run on: `device` where given,
+    else the port's default, CUDA where a card is present
+    (`device.resolve_device`'s rule); None, the host route, for the CPU."""
+    dev = torch.device(device if device is not None
+                       else "cuda" if torch.cuda.is_available() else "cpu")
+    return dev if dev.type == "cuda" else None
+
+
+def _mesh_on_card(volume: np.ndarray, level: float, min_faces: int, device: torch.device,
+                  sp) -> typing.Tuple[typing.Optional[Mesh], typing.Optional[torch.Tensor]]:
+    """The `mesh` phase on the card: (the cleaned mesh or None, its faces
+    on the card for the `clean` phase)."""
+    from ppsurf_tpu_torch.ops import mesh as card_mesh
+
+    vol = torch.from_numpy(volume).to(device)
+    sp.add(upload_bytes=volume.nbytes)
+    out = card_mesh.mesh_volume(vol, level, min_faces)
+    if out is None:
+        return None, None
+    verts, faces, emitted = out
+    sp.add(faces=emitted)
+    return Mesh(vertices=verts.cpu().numpy(), faces=faces.cpu().numpy()), faces
+
+
+def _clean_on_card(world: np.ndarray, faces: torch.Tensor, min_faces: int, sp) -> Mesh:
+    """The `clean` phase on the card: the refined vertices go up, the
+    faces are still there from the `mesh` phase."""
+    from ppsurf_tpu_torch.ops import mesh as card_mesh
+
+    verts = torch.from_numpy(world).to(faces.device)
+    sp.add(upload_bytes=world.nbytes)
+    verts, faces = card_mesh.clean(verts, faces, min_faces)
+    sp.add(faces=faces.shape[0])
+    return Mesh(vertices=verts.cpu().numpy(), faces=faces.cpu().numpy())
+
+
 def reconstruct_mesh(
     eval_field: typing.Callable[[np.ndarray], np.ndarray],
     input_points: np.ndarray,
@@ -298,6 +345,7 @@ def reconstruct_mesh(
     timings: typing.Optional[typing.Dict[str, float]] = None,
     prefill_radius: int = 0,
     stats: typing.Optional[typing.Dict[str, int]] = None,
+    device: typing.Union[str, torch.device, None] = None,
 ) -> typing.Optional[Mesh]:
     """Full reconstruction (reference
     `export_mesh_and_refine_vertices_region_growing_v3`).
@@ -309,7 +357,14 @@ def reconstruct_mesh(
     spans (`utils/spans.py`).
     prefill_radius, stats: the grower's speculative prefill and its counts
     (`create_volume_region_growing`) — same volume, other field batches.
+    device: where the reconstruction runs (`card_device`): on CUDA the mesh
+    and clean phases run on the card (`ops/mesh.py`), their spans counting
+    `faces` (marching cubes' faces in `mesh`, the cleaned mesh's in
+    `clean`) and `upload_bytes` (copied to the card in the phase); else on
+    the host, as also where `marching_cubes` was replaced. Both give the
+    same mesh.
     """
+    card = card_device(device) if marching_cubes is _OWN_MARCHING_CUBES else None
     with span("grow", sink=timings):
         volume, step, bmin_pad = create_volume_region_growing(
             eval_field, input_points, resolution, padding=padding,
@@ -317,13 +372,16 @@ def reconstruct_mesh(
             prefill_radius=prefill_radius, stats=stats,
         )
 
-    with span("mesh", sink=timings):
-        finite = volume[np.isfinite(volume)]
+    with span("mesh", sink=timings) as sp:
         mesh = None  # where the field never crosses the iso level (`poco_utils.py:92-93`)
-        if finite.size and finite.max() > mc_value > finite.min():
-            verts, faces = marching_cubes(volume, mc_value)
-            mesh = clean_simple(Mesh(vertices=verts, faces=faces))
-            mesh = remove_small_connected_components(mesh, num_faces=min_component_faces)
+        if card is not None:
+            mesh, card_faces = _mesh_on_card(volume, mc_value, min_component_faces, card, sp)
+        else:
+            finite = volume[np.isfinite(volume)]
+            if finite.size and finite.max() > mc_value > finite.min():
+                verts, faces = marching_cubes(volume, mc_value)
+                mesh = clean_simple(Mesh(vertices=verts, faces=faces))
+                mesh = remove_small_connected_components(mesh, num_faces=min_component_faces)
     if mesh is None or mesh.is_empty:
         return None
 
@@ -337,7 +395,9 @@ def reconstruct_mesh(
         else:
             world = (mesh.vertices.astype(np.float64) * step + bmin_pad).astype(np.float32)
 
-    with span("clean", sink=timings):
+    with span("clean", sink=timings) as sp:
+        if card is not None:
+            return _clean_on_card(world, card_faces, min_component_faces, sp)
         mesh = clean_simple(Mesh(vertices=world, faces=mesh.faces))
         mesh = remove_small_connected_components(mesh, num_faces=min_component_faces)
     return mesh

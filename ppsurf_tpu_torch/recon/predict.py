@@ -123,6 +123,7 @@ class Predictor:
             progress=self._progress if self.verbose else None,
             refine_device=evaluator.refine_bisection,
             timings=marks,
+            device=self.device,
         )
 
     def predict_dataset(self, dataset: ShapeDataset,

@@ -136,7 +136,7 @@ def reconstruct(predictor, cloud: np.ndarray, resolution: int, prefill: int = 0,
     mesh = reconstruct_mesh(evaluator, input_points=cloud, resolution=resolution, padding=1,
                             mc_value=0.0, refine_iter=spec.gen_refine_iter, out_value=1.0,
                             refine_device=evaluator.refine_bisection, timings=timings,
-                            prefill_radius=prefill, stats=stats)
+                            prefill_radius=prefill, stats=stats, device=device)
     _sync(device)
     seconds = time.perf_counter() - t0
     # every query the field evaluated: the grid, the refinement's

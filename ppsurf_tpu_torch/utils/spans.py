@@ -36,7 +36,7 @@ Spans and counts the program records:
 | `field`, `field.sort`, `field.chunk`, `readback` | `recon/field.py::FieldEvaluator.__call__`: the call, the host Morton order and upload, each chunk, the values' copy to the host | `field`: `queries`; `readback`: `bytes` |
 | `field.refine`, `readback` | `FieldEvaluator.refine_bisection`: the call, the failed certificates' count and the vertices' copy to the host | `field.refine`: `queries`; `readback`: `bytes` |
 | `field.patch` | `FieldEvaluator._field` where the patch is wider than the decoder's k (PPSurf 100NN, 200NN): the patch's own kNN at k=P (K1), under `field.chunk` in a grid evaluation and under `field.refine` in every bisection round, the failed certificates' plain rounds included; none at P <= k or in POCO | `queries` (the chunk's rows) |
-| `grow`, `mesh`, `refine`, `clean` | `recon/engine.py::reconstruct_mesh`, filling `timings` | |
+| `grow`, `mesh`, `refine`, `clean` | `recon/engine.py::reconstruct_mesh`, filling `timings` | `mesh`, `clean` on the card route (a CUDA reconstruction, `ops/mesh.py`): `faces` (marching cubes' faces in `mesh`, the cleaned mesh's in `clean`) and `upload_bytes` (copied to the card in the phase); none on the host route |
 | `step.forward`, `step.backward`, `step.optimizer` | `train/loop.py::train_step` | |
 | `train_step N` | `Trainer.fit` | |
 | `data.wait` | `data/datasets.py::_PrefetchIterator`: the consumer blocked on its next batch | |

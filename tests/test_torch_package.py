@@ -248,7 +248,9 @@ def test_kernels_match_plain_versions_on_the_card():
            a + 0.01 * torch.rand(a.shape, generator=g, device=dev))
     torch.testing.assert_close(winding(q, *tri), winding_plain(q, *tri), rtol=0, atol=1e-4)
     wider = ("decoder_tail_l32", "pointnet_trunk_wide", "pointnet_head_wide")
-    assert all(v == (k not in wider) for k, v in kernels.LAUNCHES.items()), kernels.LAUNCHES
+    # the meshing kernels: tests/test_torch_mesh_card.py
+    assert all(v == (k not in wider + kernels.MESH_KERNELS)
+               for k, v in kernels.LAUNCHES.items()), kernels.LAUNCHES
 
     def within_bf16_limits(pairs):
         """The smoke's bf16 limits: max and mean |kernel - plain| within
